@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels (``gple_tpu_torch/csrc/*.cu``).
+
+The sources have a plain C interface, so they compile with ``nvcc`` alone in
+seconds (no PyTorch headers) into one shared library, which is loaded with
+``ctypes``.  The library goes to ``gple_tpu_torch/_build/``, named by a hash
+of the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused.  Nothing here runs at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("rbf_gram.cu", "rbf_predict.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C signatures of the exported launchers (pointers and the stream as void*)
+_SIGNATURES = {
+    "rbf_gram": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 8 + [_P],
+    "rbf_predict_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 11 + [_P],
+}
+
+_lib = None
+#: what the last build did: {"seconds": float, "log": str, "path": str}
+BUILD_INFO: dict = {}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, the ``PATH``, or the toolkit's
+    default install prefix; raises when there is none."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiled on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"gple_kernels_{_digest()}.so"
+    t0 = time.perf_counter()
+    log = "cached"
+    if not target.exists():
+        # build beside the target and rename: a concurrent build never loads
+        # a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for prefix, argtypes in _SIGNATURES.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{prefix}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(target))
+    _lib = lib
+    return lib
