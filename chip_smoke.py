@@ -7,8 +7,11 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``gple_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   shapes of the main path, with the stated tolerance, and both times;
+3. kernels: each kernel against its plain PyTorch version on the card at every
+   shape of the main path, with the stated tolerance; two launches on the same
+   inputs bit for bit; the kernel's device time (median of 5 runs of >= 200
+   back-to-back launches and >= 20 ms) and the plain version's, beside the
+   kernel's bound (``gple_tpu_torch/ops/kernel_bench.py``);
 4. agreement: one fit+evolve step at N = 256 on the GPU (kernels) against the
    same step on the CPU (plain versions);
 5. slice: at N = 1024, 2 warm-up + 10 timed ``make_step_fn`` steps and 5
@@ -45,84 +48,68 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` in ms over ``iters`` calls, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cloud(rng, batch: int, n: int, dev, dtype):
-    """Points shaped like the example cloud: r0 + sigma * N(0, 1)."""
-    pts = np.array([-10.0, 30.0]) + rng.normal(size=(batch, n, 2)) * np.array([1 / 3, 1.5])
-    return torch.tensor(pts, dtype=dtype, device=dev)
-
-
-def lengths_like(rng, batch: int, dev, dtype):
-    ls = np.array([1 / 3, 1.5]) * rng.uniform(0.5, 2.0, size=(batch, 2))
-    return torch.tensor(ls, dtype=dtype, device=dev)
-
-
 def kernel_phase():
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes: the
+    agreement, two launches bit for bit, and the device times against the
+    bound (``gple_tpu_torch.ops.kernel_bench``)."""
+    from gple_tpu_torch.ops import _build
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import kernel_bench as KB
 
     rng = np.random.default_rng(0)
-    dev = "cuda"
+    dev = torch.device("cuda")
+    lib = _build.library()
     cases = []
-    gram_shapes = [  # (B, Na, Nb, dtype, what)
-        (5, N_SLICE, N_SLICE, torch.float64, "refit grams"),
-        (3, 10 * N_SLICE, N_SLICE, torch.float64, "complex variance cross-grams"),
-        (2, 10 * N_SLICE, N_SLICE, torch.float64, "diagonal variance cross-grams"),
-        (5, N_SLICE, N_SLICE, torch.float32, "refit grams, float32"),
-    ]
-    for batch, na, nb, dtype, what in gram_shapes:
-        l = lengths_like(rng, batch, dev, dtype)
-        xa, xb = cloud(rng, batch, na, dev, dtype), cloud(rng, batch, nb, dev, dtype)
-        out = GK.gram_cuda(l, xa, xb)
+    for case in KB.GRAM_CASES:
+        l = KB.lengths_like(rng, case.batch, dev, case.dtype)
+        xa = KB.cloud(rng, case.batch, case.na, dev, case.dtype)
+        xb = KB.cloud(rng, case.batch, case.nb, dev, case.dtype)
+        out, again = GK.gram_cuda(l, xa, xb), GK.gram_cuda(l, xa, xb)
         ref = GK.gram_plain(l, xa, xb)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        tol = TOL_GRAM_F64 if dtype == torch.float64 else TOL_GRAM_F32
-        ms = cuda_ms(lambda: GK.gram_cuda(l, xa, xb), 20)
-        plain_ms = cuda_ms(lambda: GK.gram_plain(l, xa, xb), 5)
-        cases.append(dict(kernel="rbf_gram", shape=f"B={batch} {na}x{nb} D=2 {dtype}",
-                          what=what, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms))
-        del out, ref
-    predict_shapes = [  # (B, M, N, C, what)
-        (2, 10 * N_SLICE, N_SLICE, 1, "diagonal mean, density query fan"),
-        (3, 10 * N_SLICE, N_SLICE, 2, "complex mean, density query fan"),
-        (3, 50 * N_SLICE, N_SLICE, 2, "complex mean, extra-cloud query fan"),
-    ]
-    for batch, m, n, c, what in predict_shapes:
-        dtype = torch.float64
-        l = lengths_like(rng, batch, dev, dtype)
-        xt, xtr = cloud(rng, batch, m, dev, dtype), cloud(rng, batch, n, dev, dtype)
-        alpha = torch.tensor(rng.normal(size=(batch, n, c)), dtype=dtype, device=dev)
+        tol = TOL_GRAM_F64 if case.dtype == torch.float64 else TOL_GRAM_F32
+        ms = KB.device_ms(KB.raw_gram(lib, l, xa, xb, out))
+        plain_ms = KB.device_ms(lambda: GK.gram_plain(l, xa, xb), launches=5, min_ms=0,
+                                repeats=3)
+        bound, by = KB.gram_bound(case.batch, case.na, case.nb, 2, case.dtype.itemsize)
+        cases.append(dict(kernel="rbf_gram", shape=case.shape, what=case.what,
+                          per_step=case.per_step, per_tick=case.per_tick,
+                          max_abs_err=err, tol=tol, bitwise_repeat=bool(torch.equal(out, again)),
+                          ms=ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
+                          share=bound / ms))
+        del out, again, ref
+    for case in KB.PREDICT_CASES:
+        l = KB.lengths_like(rng, case.batch, dev, case.dtype)
+        xt = KB.cloud(rng, case.batch, case.m, dev, case.dtype)
+        xtr = KB.cloud(rng, case.batch, case.n, dev, case.dtype)
+        alpha = torch.tensor(rng.normal(size=(case.batch, case.n, case.c)), dtype=case.dtype,
+                             device=dev)
         out = GK.predict_mean_cuda(l, xt, xtr, alpha)
+        again = GK.predict_mean_cuda(l, xt, xtr, alpha)
         ref = GK.predict_mean_plain(l, xt, xtr, alpha)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        ms = cuda_ms(lambda: GK.predict_mean_cuda(l, xt, xtr, alpha), 10)
-        plain_ms = cuda_ms(lambda: GK.predict_mean_plain(l, xt, xtr, alpha), 3)
-        cases.append(dict(kernel="rbf_predict_mean",
-                          shape=f"B={batch} M={m} N={n} C={c} D=2 {dtype}", what=what,
-                          max_abs_err=err, rel_err=rel, tol=TOL_PREDICT_F64, ms=ms,
-                          plain_ms=plain_ms))
-        del out, ref
+        raw_out, scratch, plan = KB.predict_buffers(xt, case.n, case.c)
+        ms = KB.device_ms(KB.raw_predict(lib, l, xt, xtr, alpha, raw_out, scratch, plan))
+        plain_ms = KB.device_ms(lambda: GK.predict_mean_plain(l, xt, xtr, alpha), launches=3,
+                                min_ms=0, repeats=3)
+        bound, by = KB.predict_bound(case.batch, case.m, case.n, case.c, 2)
+        cases.append(dict(kernel="rbf_predict_mean", shape=case.shape, what=case.what,
+                          per_step=case.per_step, per_tick=case.per_tick, plan=list(plan),
+                          max_abs_err=err, rel_err=err / ref.abs().max().item(),
+                          tol=TOL_PREDICT_F64, bitwise_repeat=bool(torch.equal(out, again)),
+                          ms=ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
+                          share=bound / ms))
+        del out, again, ref, raw_out, scratch
     for case in cases:
         log("kernel " + json.dumps(case))
     for case in cases:
         measured = case.get("rel_err", case["max_abs_err"])
         if not measured <= case["tol"]:
             raise AssertionError(f"kernel disagrees with its plain version: {case}")
+        if not case["bitwise_repeat"]:
+            raise AssertionError(f"two launches on the same inputs differ: {case}")
     return cases
 
 
@@ -189,6 +176,7 @@ def slice_phase():
     torch.cuda.synchronize()
     s_step = (time.perf_counter() - t0) / TIMED_STEPS
     pop_steps = gps.population().item()
+    in_steps = dict(GK.LAUNCHES)
 
     tick_s = []
     smalls = []
@@ -208,7 +196,8 @@ def slice_phase():
     log(f"slice N={N_SLICE}: s/tick {sum(tick_s) / len(tick_s)!r} (each: {tick_s!r})")
     log(f"slice N={N_SLICE}: population after steps {pop_steps!r}, after ticks {pop1!r}; "
         f"purity {gps.purity().item()!r}; is_very_small {smalls[-1]}")
-    log(f"slice launches: {json.dumps(launches)}")
+    log(f"slice launches: {json.dumps(launches)} ({json.dumps(in_steps)} in the "
+        f"{WARMUP_STEPS + TIMED_STEPS} steps, the rest in the {TICKS} ticks)")
 
     for name, tree in (("density", density), ("extra", extra), ("gps", gps)):
         _check_finite(name, tree)
@@ -220,6 +209,29 @@ def slice_phase():
         if count <= 0:
             raise AssertionError(f"slice: kernel {name} was not launched by the main path")
     return launches, s_step
+
+
+def kernel_summary(cases, launches):
+    """One entry per kernel for the ``{"kernels": [...]}`` line.  Its top-level
+    times are those of the shape where the main path spends the most kernel
+    time (launches per step + tick times ms); every shape is in ``cases``."""
+    sources = {"rbf_gram": ("gple_tpu_torch/csrc/rbf_gram.cu",
+                            "gple_tpu/ops/pallas_gram.py:78"),
+               "rbf_predict_mean": ("gple_tpu_torch/csrc/rbf_predict.cu",
+                                    "gple_tpu/ops/pallas_gram.py:124")}
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        head = max(mine, key=lambda c: (c["per_step"] + c["per_tick"]) * c["ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_us"] / 1e3,
+            bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+            cases=[{k: c[k] for k in ("shape", "per_step", "per_tick", "ms", "plain_ms",
+                                      "bound_us", "bound_by", "share", "max_abs_err")}
+                   for c in mine]))
+    return kernels
 
 
 def main() -> int:
@@ -247,19 +259,7 @@ def main() -> int:
     agreement_phase()
     launches, _ = slice_phase()
 
-    sources = {"rbf_gram": ("gple_tpu_torch/csrc/rbf_gram.cu",
-                            "gple_tpu/ops/pallas_gram.py:78"),
-               "rbf_predict_mean": ("gple_tpu_torch/csrc/rbf_predict.cu",
-                                    "gple_tpu/ops/pallas_gram.py:124")}
-    kernels = []
-    for name, (source, replaces) in sources.items():
-        mine = [c for c in cases if c["kernel"] == name]
-        head = mine[0]
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name],
-                            max_abs_err=max(c["max_abs_err"] for c in mine),
-                            ms=head["ms"], plain_ms=head["plain_ms"], shape=head["shape"]))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_summary(cases, launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

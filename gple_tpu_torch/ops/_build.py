@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,9 +31,27 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures of the exported launchers (pointers and the stream as void*)
 _SIGNATURES = {
-    "rbf_gram": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 8 + [_P],
-    "rbf_predict_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 11 + [_P],
+    "rbf_gram": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_P],
+    "rbf_predict_mean": [_P] * 6 + [_I] * 7 + [_L] * 11 + [_P],
 }
+
+_C_TYPES = {"int": _I, "long long": _L}
+
+
+def c_prototypes(path: Path) -> dict:
+    """name -> ctypes of each parameter, for every function that the
+    ``extern "C"`` block of the source ``path`` defines."""
+    text = path.read_text()
+    block = text[text.index('extern "C" {'):]
+    protos = {}
+    for name, params in re.findall(r"\bint\s+(\w+)\s*\(([^)]*)\)\s*\{", block):
+        kinds = []
+        for param in params.split(","):
+            ctype = " ".join(param.split()[:-1])  # drop the parameter's name
+            kinds.append(_P if "*" in ctype else _C_TYPES[ctype])
+        protos[name] = kinds
+    return protos
+
 
 _lib = None
 #: what the last build did: {"seconds": float, "log": str, "path": str}

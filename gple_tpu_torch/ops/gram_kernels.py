@@ -24,6 +24,8 @@ broadcast over several length sets is never copied.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 #: kernel launches since the last reset, by kernel name
@@ -33,7 +35,22 @@ LAUNCHES = {"rbf_gram": 0, "rbf_predict_mean": 0}
 MAX_DIM = 4
 #: right-hand sides the predict kernel is instantiated for
 MAX_RHS = 2
-_MAX_GRID_Y = 65535
+#: output rows per block of the gram kernel (``kRowsPerBlock`` in csrc/rbf_gram.cu)
+GRAM_ROWS_PER_BLOCK = 128
+#: test rows per block of the predict kernel (``kRowsPerBlock`` in csrc/rbf_predict.cu)
+PREDICT_ROWS_PER_BLOCK = 256
+#: training points a predict block holds in shared memory (``kMaxChunk``)
+PREDICT_MAX_CHUNK = 1024
+_MAX_GRID_X = 2**31 - 1
+_MAX_GRID_YZ = 65535
+_MAX_INT = 2**31 - 1
+#: resident 4-warp predict blocks an SM needs to keep its FP64 pipe busy (12
+#: fit at the kernel's 40 registers a thread)
+_FILL_BLOCKS = 12
+#: a predict block's set-up (copy, scale, barrier, epilogue) in training points
+_BLOCK_SETUP = 8
+#: fewest training points a predict block takes when N is split
+_MIN_CHUNK = 32
 
 
 def reset_launches() -> None:
@@ -84,6 +101,50 @@ def _raise_on(name: str, err: int):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gram_grid(batch: int, na: int, nb: int, d: int, dtype) -> tuple[int, int, int]:
+    """The gram kernel's grid (column tiles, row tiles, B); raises ValueError
+    where the shape is outside what the kernel or the grid takes.  A warp
+    covers 32 rows x 16 bytes of columns per lane."""
+    cols_per_block = 32 * (16 // dtype.itemsize)
+    grid = (_cdiv(nb, cols_per_block), _cdiv(na, GRAM_ROWS_PER_BLOCK), batch)
+    if (not 1 <= d <= MAX_DIM or max(na, nb) > _MAX_INT or grid[0] > _MAX_GRID_X
+            or max(grid[1:]) > _MAX_GRID_YZ):
+        raise ValueError(f"rbf_gram: D={d}, B={batch}, Na={na}, Nb={nb} outside the "
+                         "kernel's range")
+    return grid
+
+
+@functools.lru_cache(maxsize=256)
+def predict_plan(batch: int, m: int, n: int, num_sms: int) -> tuple[int, int]:
+    """(splits, chunk) for the predict kernel: its grid is (row tiles, splits,
+    B) and each block holds ``chunk`` training points, the last one fewer.
+
+    The chosen split is the one that the busiest SM finishes first, counting
+    each block's chunk plus a fixed set-up, when every SM's share of the
+    blocks runs together and an SM with fewer than ``_FILL_BLOCKS`` of them is
+    slowed in proportion (too few exp chains to hide the FP64 latency)."""
+    tiles = batch * _cdiv(m, PREDICT_ROWS_PER_BLOCK)
+    fewest = _cdiv(n, PREDICT_MAX_CHUNK)
+    best = None
+    for s in range(fewest, max(fewest, min(n // _MIN_CHUNK, _MAX_GRID_YZ)) + 1):
+        chunk = _cdiv(n, s)
+        if _cdiv(n, chunk) != s:  # the same chunks as a smaller s
+            continue
+        per_sm = _cdiv(tiles * s, num_sms)
+        cost = per_sm * (chunk + _BLOCK_SETUP) * _FILL_BLOCKS / min(per_sm, _FILL_BLOCKS)
+        if best is None or cost < best[0]:
+            best = (cost, s, chunk)
+    return best[1], best[2]
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gram_cuda(lengths, xa, xb):
     """Launch the ``rbf_gram`` kernel on (B, D), (B, Na, D), (B, Nb, D) CUDA
     tensors; returns a new contiguous (B, Na, Nb) tensor."""
@@ -93,8 +154,7 @@ def gram_cuda(lengths, xa, xb):
     if xb.shape != (batch, nb, d) or lengths.shape != (batch, d):
         raise ValueError(f"rbf_gram: shapes {tuple(lengths.shape)}, {tuple(xa.shape)}, "
                          f"{tuple(xb.shape)} do not form (B, D), (B, Na, D), (B, Nb, D)")
-    if not 1 <= d <= MAX_DIM or batch > _MAX_GRID_Y or (na + 7) // 8 > _MAX_GRID_Y:
-        raise ValueError(f"rbf_gram: D={d}, B={batch}, Na={na} outside the kernel's range")
+    gram_grid(batch, na, nb, d, xa.dtype)
     fn = _launcher("rbf_gram", xa.dtype)
     with torch.cuda.device(xa.device):
         out = torch.empty((batch, na, nb), dtype=xa.dtype, device=xa.device)
@@ -110,7 +170,9 @@ def gram_cuda(lengths, xa, xb):
 
 def predict_mean_cuda(lengths, x_test, x_train, alpha):
     """Launch the ``rbf_predict_mean`` kernel on (B, D), (B, M, D), (B, N, D),
-    (B, N, C) CUDA tensors; returns a new contiguous (B, M, C) tensor."""
+    (B, N, C) CUDA tensors; returns a new contiguous (B, M, C) tensor.  Where
+    :func:`predict_plan` splits N, the partial sums go to a scratch tensor
+    (splits, B, M, C) allocated here."""
     _check_cuda("rbf_predict_mean", lengths, x_test, x_train, alpha)
     batch, m, d = x_test.shape
     n, c = x_train.shape[1], alpha.shape[-1]
@@ -120,18 +182,27 @@ def predict_mean_cuda(lengths, x_test, x_train, alpha):
             f"rbf_predict_mean: shapes {tuple(lengths.shape)}, {tuple(x_test.shape)}, "
             f"{tuple(x_train.shape)}, {tuple(alpha.shape)} do not form "
             "(B, D), (B, M, D), (B, N, D), (B, N, C)")
-    if not 1 <= d <= MAX_DIM or not 1 <= c <= MAX_RHS or batch > _MAX_GRID_Y:
-        raise ValueError(f"rbf_predict_mean: D={d}, C={c}, B={batch} outside the "
-                         "kernel's range")
+    if (not 1 <= d <= MAX_DIM or not 1 <= c <= MAX_RHS or batch > _MAX_GRID_YZ
+            or max(m, n) > _MAX_INT):
+        raise ValueError(f"rbf_predict_mean: D={d}, C={c}, B={batch}, M={m}, N={n} "
+                         "outside the kernel's range")
     fn = _launcher("rbf_predict_mean", x_test.dtype)
-    with torch.cuda.device(x_test.device):
-        out = torch.empty((batch, m, c), dtype=x_test.dtype, device=x_test.device)
-        if m == 0:
+    dev = x_test.device
+    with torch.cuda.device(dev):
+        out = torch.empty((batch, m, c), dtype=x_test.dtype, device=dev)
+        if out.numel() == 0:
             return out
-        stream = torch.cuda.current_stream(x_test.device).cuda_stream
+        if n == 0:
+            return out.zero_()
+        splits, chunk = predict_plan(batch, m, n, _sm_count(dev))
+        # partial sums of each split, added in split order by the kernel's second pass
+        scratch = (torch.empty((splits, batch, m, c), dtype=out.dtype, device=dev)
+                   if splits > 1 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_test.data_ptr(), x_train.data_ptr(), lengths.data_ptr(),
-                 alpha.data_ptr(), out.data_ptr(), batch, m, n, d, c,
-                 *x_test.stride(), *x_train.stride(), *lengths.stride(),
+                 alpha.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), batch, m, n, d, c,
+                 splits, chunk, *x_test.stride(), *x_train.stride(), *lengths.stride(),
                  *alpha.stride(), stream)
     _raise_on("rbf_predict_mean", err)
     LAUNCHES["rbf_predict_mean"] += 1
