@@ -9,12 +9,17 @@ extra cloud (5N points per element) the same way.
 Random points are drawn on the CPU from ``generator`` and then moved to
 ``device``, so one seed gives the same state on every device.  ``pts0``
 replaces the draw (the tests pass the JAX package's points).
+
+:func:`trajectory_config` is the production trajectory of the same workload
+for :class:`gple_tpu_torch.driver.GPLEDriver`, and :func:`crossing_config`
+the crossing-region regression trajectory of ``tests/test_crossing.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.sampler import mc
@@ -78,3 +83,19 @@ def example_extra(n_extra: int, device, generator=None, pts0=None) -> Density:
     """An extra cloud of ``n_extra`` points per element (the driver uses 5N),
     built like :func:`example_state`'s density."""
     return _cloud(n_extra, device, generator, pts0)
+
+
+def trajectory_config(n_points: int = 1024) -> GPLEConfig:
+    """The production Tully-A (SAC) trajectory: mass 2000, x0 = -10, p0 = 30,
+    sigma_p0 = 1.5, dt = 1, an output and a scheduled reoptimization every 10
+    ticks, ``n_points`` points per element, every other setting at its default."""
+    return GPLEConfig(model="SAC", mass=2000.0, x0=-10.0, p0=30.0, sigma_p0=1.5,
+                      output_time=10.0, reopt_time=10.0, dt=1.0, num_points=n_points)
+
+
+def crossing_config() -> GPLEConfig:
+    """The crossing-region trajectory (SAC from x0 = -2 at p0 = 20, sigma_p0 = 1,
+    N = 64, outputs every 10 ticks, reoptimizations every 20): the packet goes
+    through the avoided crossing and transfers population."""
+    return GPLEConfig(model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0,
+                      output_time=10.0, reopt_time=20.0, dt=1.0, num_points=64)

@@ -18,9 +18,8 @@ predict is ONE ``predict_mean_rbf`` launch (see :func:`complex_mean`).
 Ported so far: the block-diagonal (corr = 0) fit that the production step
 uses.  The full 2N embedding of ``fit_complex`` and the chirp estimate
 (``estimate_chirp``) are not: ``block_diag=False`` and ``chirp=True`` raise
-``NotImplementedError``.  ``loocv_error_complex``,
-``optimal_magnitude_complex`` and ``extra_set_error_complex`` come with the
-optimizer.
+``NotImplementedError``.  The optimizer's ``extra_set_error_complex`` is the
+fused mean (:func:`complex_mean`), one launch for the 5N extra points.
 """
 
 from __future__ import annotations
@@ -165,6 +164,28 @@ def _assemble_complex_state(params, features, y, rescale, chirp_k,
     return ComplexTrainState(params=params, features=features, labels=y, rescale=rescale,
                              p_re=p_re, p_im=p_im, q_re=q_re, q_im=q_im, v=v,
                              chirp_k=chirp_k)
+
+
+def loocv_error_complex(state: ComplexTrainState):
+    """Complex leave-one-out CV error (complex_kernel.cpp:270-286)."""
+    pd = torch.diagonal(state.p_re)          # P Hermitian: diagonal real
+    qd = torch.stack([torch.diagonal(state.q_re), torch.diagonal(state.q_im)], dim=-1)
+    denom = pd**2 - ri.abs2(qd)
+    num = ri.scale(state.v, pd) - ri.conj(ri.mul(qd, state.v))
+    return torch.sum(ri.abs2(num) / denom**2)
+
+
+def optimal_magnitude_complex(state: ComplexTrainState):
+    """sqrt(Re(y^H v) / N) (complex_kernel.h:190-204)."""
+    within = ri.vdot_re(state.labels, state.v) / state.labels.shape[0]
+    return torch.sqrt(torch.abs(within))
+
+
+def extra_set_error_complex(state: ComplexTrainState, test_features, test_labels):
+    """Squared prediction error on a held-out RI set (complex_kernel.cpp:645-646),
+    through the fused mean."""
+    mean = complex_mean(state.params, test_features, state.features, state.v)
+    return torch.sum(ri.abs2(mean - test_labels * state.rescale))
 
 
 def _mean_ri(k_star, kt_re, kt_im, v):

@@ -13,8 +13,9 @@ a dispatching entry point:
 Dispatch is by the device of the tensors alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or the launch raises), and any
 other device raises.  There is no fallback from the kernel to the plain
-version.  Every kernel launch adds one to :data:`LAUNCHES`, so a run can show
-that its path went through the kernels.
+version.  Every kernel launch adds one to :data:`LAUNCHES` and to its shape's
+entry in :data:`LAUNCHES_BY_SHAPE`, so a run can show that its path went
+through the kernels, and at which shapes.
 
 The entry points take batched operands whose leading dimensions broadcast:
 ``lengths (..., D)``, ``xa (..., Na, D)``, ``xb (..., Nb, D)``, ``alpha
@@ -30,6 +31,9 @@ import torch
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"rbf_gram": 0, "rbf_predict_mean": 0}
+#: the same launches by (kernel name, shape): ``rbf_gram`` shapes are
+#: (B, Na, Nb, D, dtype), ``rbf_predict_mean`` shapes (B, M, N, C, D, dtype)
+LAUNCHES_BY_SHAPE: dict = {}
 
 #: phase-space dimensions the kernels are instantiated for
 MAX_DIM = 4
@@ -56,6 +60,13 @@ _MIN_CHUNK = 32
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _count_launch(name: str, shape: tuple) -> None:
+    LAUNCHES[name] += 1
+    key = (name, shape)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 # -- plain PyTorch versions (the CPU path and the on-card reference) -------------
@@ -164,7 +175,7 @@ def gram_cuda(lengths, xa, xb):
         err = fn(xa.data_ptr(), xb.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  batch, na, nb, d, *xa.stride(), *xb.stride(), *lengths.stride(), stream)
     _raise_on("rbf_gram", err)
-    LAUNCHES["rbf_gram"] += 1
+    _count_launch("rbf_gram", (batch, na, nb, d, str(xa.dtype)[6:]))
     return out
 
 
@@ -205,7 +216,7 @@ def predict_mean_cuda(lengths, x_test, x_train, alpha):
                  splits, chunk, *x_test.stride(), *x_train.stride(), *lengths.stride(),
                  *alpha.stride(), stream)
     _raise_on("rbf_predict_mean", err)
-    LAUNCHES["rbf_predict_mean"] += 1
+    _count_launch("rbf_predict_mean", (batch, m, n, c, d, str(x_test.dtype)[6:]))
     return out
 
 

@@ -17,8 +17,9 @@ apart by rank alone; functions that see only the lengths take ``matrix``.
 Every Gram goes through :func:`gple_tpu_torch.ops.gram_kernels.gram_rbf` and
 the mean-only predict through ``predict_mean_rbf`` (the CUDA kernels on the
 GPU).  The precision is float64: the JAX package's f32 TPU predict branch
-(``predict_impl``) is not ported.  ``loocv_error``, ``extra_set_error`` and
-``optimal_magnitude`` belong to the optimizer and come with it.
+(``predict_impl``) is not ported.  ``extra_set_error``, the optimizer's
+prediction of 5N extra points against N training points, is the fused mean
+(``predict_mean_rbf``): no (5N, N) cross-kernel is built.
 """
 
 from __future__ import annotations
@@ -129,6 +130,16 @@ def fit_real(params: KernelParams, features, labels_raw, kinv_warm=None) -> Real
     return finish_real_fit(params, features, labels_raw, k, kinv)
 
 
+def kinv_diagonal(state: RealTrainState):
+    """diag(K^-1) from the cached inverse, (..., N)."""
+    return torch.diagonal(state.kinv, dim1=-2, dim2=-1)
+
+
+def loocv_error(state: RealTrainState):
+    """Leave-one-out CV squared error sum((alpha_i / K^-1_ii)^2), (...)."""
+    return torch.sum((state.alpha / kinv_diagonal(state)) ** 2, dim=-1)
+
+
 def predict_real(state: RealTrainState, test_features, with_variance: bool = True):
     """Mean, variance and cutoff prediction at ``test_features`` (..., M, D).
 
@@ -204,3 +215,21 @@ def purity(state: RealTrainState):
     a = state.alpha[..., None]
     quad = (a.transpose(-1, -2) @ (k1 @ a))[..., 0, 0]
     return purity_factor(d) * math.pi**d * quad / state.rescale**2
+
+
+def extra_set_error(state: RealTrainState, test_features, test_labels_raw):
+    """Squared prediction error on a held-out set, in rescaled units, (...):
+    one ``predict_mean_rbf`` launch for the whole batch."""
+    p = state.params
+    lengths, xt, xtr = _kernel_operands(p.lengths, test_features, state.features)
+    g_alpha = predict_mean_rbf(lengths, xt, xtr, state.alpha[..., None])[..., 0]
+    mean_scaled = (p.magnitude**2)[..., None] * g_alpha
+    y = torch.real(test_labels_raw) * state.rescale[..., None]
+    return torch.sum((mean_scaled - y) ** 2, dim=-1)
+
+
+def optimal_magnitude(state: RealTrainState):
+    """Maximum-likelihood magnitude sqrt(y^T K^-1 y / N) given magnitude = 1
+    during optimization, (...)."""
+    within = torch.sum(state.labels * state.alpha, dim=-1) / state.labels.shape[-1]
+    return torch.sqrt(torch.abs(within))

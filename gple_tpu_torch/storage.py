@@ -49,6 +49,12 @@ class Density(NamedTuple):
     def num_points(self) -> int:
         return self.points.shape[1]
 
+    @property
+    def rho_complex(self):
+        """Host-side complex numpy view (for analysis and tests)."""
+        r = self.rho.detach().cpu().numpy()
+        return r[..., 0] + 1.0j * r[..., 1]
+
 
 class GPStates(NamedTuple):
     """Fitted GP surrogates for every element.  ``diag`` is a batched (leading
@@ -71,6 +77,11 @@ class GPStates(NamedTuple):
     def r_average(self):
         r = RK.r_average(self.diag)
         return torch.sum(torch.where(self._diag_mask()[:, None], r, 0.0), dim=0)
+
+    def total_energy(self, surface_energies):
+        """Population-weighted energies, with per-surface energies supplied by
+        the Monte-Carlo estimate (predict.cpp:421-436)."""
+        return torch.sum(self.population_each() * surface_energies)
 
     def purity(self):
         total = torch.sum(torch.where(self._diag_mask(), RK.purity(self.diag), 0.0))

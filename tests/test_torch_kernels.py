@@ -223,6 +223,20 @@ def test_gram_launch_passes_grid_operands(stand_in_launch):
     assert args[8:16] == (*xa.stride(), 0, 2, 1, *l.stride())
 
 
+def test_launches_are_counted_by_kernel_and_shape(stand_in_launch):
+    GK.reset_launches()
+    x = torch.zeros(3, 40, 2, dtype=torch.float64)
+    l = torch.ones(3, 2, dtype=torch.float64)
+    GK.gram_cuda(l, x, x[:, :8])
+    GK.gram_cuda(l, x, x[:, :8])
+    GK.predict_mean_cuda(l, x, x[:, :8], torch.zeros(3, 8, 2, dtype=torch.float64))
+    assert GK.LAUNCHES == {"rbf_gram": 2, "rbf_predict_mean": 1}
+    assert GK.LAUNCHES_BY_SHAPE == {("rbf_gram", (3, 40, 8, 2, "float64")): 2,
+                                    ("rbf_predict_mean", (3, 40, 8, 2, 2, "float64")): 1}
+    GK.reset_launches()
+    assert GK.LAUNCHES == {"rbf_gram": 0, "rbf_predict_mean": 0} and not GK.LAUNCHES_BY_SHAPE
+
+
 def test_ctypes_signatures_match_the_c_prototypes():
     protos = {}
     for path in sorted(_build.CSRC.glob("*.cu")):
@@ -251,7 +265,9 @@ def test_import_pulls_in_neither_jax_nor_gple_tpu():
     code = (
         "import sys, gple_tpu_torch, gple_tpu_torch.convert, gple_tpu_torch.entry, "
         "gple_tpu_torch.driver, gple_tpu_torch.parallel.sharding, "
-        "gple_tpu_torch.ops._build, gple_tpu_torch.ops.kernel_bench\n"
+        "gple_tpu_torch.ops._build, gple_tpu_torch.ops.kernel_bench, gple_tpu_torch.cli, "
+        "gple_tpu_torch.config, gple_tpu_torch.observables, gple_tpu_torch.sampler.mc, "
+        "gple_tpu_torch.sampler.keys, gple_tpu_torch.gp.opt, gple_tpu_torch.io.writers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'gple_tpu' or m.startswith('gple_tpu.')]\n"
         "assert not bad, bad\n"
