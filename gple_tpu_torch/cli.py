@@ -2,15 +2,20 @@
 
     python -m gple_tpu_torch.cli gple --input input --outdir out [--model DAC]
         [--max-ticks N] [--device cuda|cpu] [--quiet]
+        [--opt-mode moment|ladder] [--reference-parity]
+        [--checkpoint FILE --checkpoint-every K] [--resume FILE]
 
 Reads the reference's 8-field ``input`` file, runs the GPR-MQCLE trajectory
 on ``--device`` (the CUDA card unless ``cpu`` is given) and writes the
-reference's output files into ``--outdir``.  The last stdout line is the
+reference's output files into ``--outdir``.  ``--opt-mode ladder`` takes the
+constrained restart ladder; ``--reference-parity`` runs run-for-run
+comparable to the reference (the ladder, the cutoff evolution, the initial
+purity target, corr pinned to 1).  ``--checkpoint`` with
+``--checkpoint-every K`` writes the state every K ticks; ``--resume``
+continues from a checkpoint of either package.  The last stdout line is the
 reference's: p0 (ln E for DAC) and the final populations.
 
 Not ported yet, and refused with a message naming the ROADMAP item: the
-checkpoint flags (``--checkpoint``, ``--checkpoint-every``, ``--resume``), the
-constrained ladder (``--opt-mode ladder``, ``--reference-parity``) and the
 exact-oracle subcommands ``se`` and ``le``.
 """
 
@@ -21,9 +26,6 @@ import math
 import sys
 
 NOT_PORTED = {
-    "checkpoint": "io/checkpoint.py and the CLI's checkpoint flags (ROADMAP Queue A "
-                  "item 10)",
-    "ladder": "the constrained ladder (ROADMAP Queue A item 11)",
     "oracles": "the exact oracles and their se / le subcommands (ROADMAP Queue A item 12)",
 }
 
@@ -39,12 +41,16 @@ def _parser():
     g.add_argument("--max-ticks", type=int, default=None)
     g.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     g.add_argument("--quiet", action="store_true")
-    g.add_argument("--checkpoint", default=None, help="not ported yet")
-    g.add_argument("--checkpoint-every", type=int, default=0, help="not ported yet")
-    g.add_argument("--resume", default=None, help="not ported yet")
-    g.add_argument("--opt-mode", default="moment", choices=["moment", "ladder"],
-                   help="hyperparameter strategy; only moment is ported")
-    g.add_argument("--reference-parity", action="store_true", help="not ported yet")
+    g.add_argument("--checkpoint", default=None, help="checkpoint file to write")
+    g.add_argument("--checkpoint-every", type=int, default=0,
+                   help="write --checkpoint every this many ticks")
+    g.add_argument("--resume", default=None, help="checkpoint file to resume from")
+    g.add_argument("--opt-mode", default=None, choices=["moment", "ladder"],
+                   help="hyperparameter strategy (default: moment; see "
+                   "GPLEConfig.opt_mode)")
+    g.add_argument("--reference-parity", action="store_true",
+                   help="run-for-run comparable to the reference: evolution cutoff on, "
+                   "initial purity target, corr pinned to 1, constrained ladder")
     for name in ("se", "le"):
         sub.add_parser(name, help="exact oracle (not ported yet)")
     return ap
@@ -55,18 +61,19 @@ def main(argv=None):
     opts = ap.parse_args(argv)
     if opts.cmd in ("se", "le"):
         ap.error(f"{opts.cmd}: not ported yet: {NOT_PORTED['oracles']}")
-    if opts.checkpoint or opts.checkpoint_every or opts.resume:
-        ap.error(f"checkpoints are not ported yet: {NOT_PORTED['checkpoint']}")
-    if opts.opt_mode == "ladder" or opts.reference_parity:
-        ap.error(f"--opt-mode ladder / --reference-parity are not ported yet: "
-                 f"{NOT_PORTED['ladder']}")
 
     from gple_tpu_torch.config import GPLEConfig
     from gple_tpu_torch.driver import GPLEDriver
 
-    cfg = GPLEConfig.from_input_file(opts.input, model=opts.model)
+    extra = {}
+    if opts.opt_mode:
+        extra["opt_mode"] = opts.opt_mode
+    if opts.reference_parity:
+        extra["reference_parity"] = True
+    cfg = GPLEConfig.from_input_file(opts.input, model=opts.model, **extra)
     drv = GPLEDriver(cfg, outdir=opts.outdir, verbose=not opts.quiet, device=opts.device)
-    last = drv.run(max_ticks=opts.max_ticks)[-1]
+    last = drv.run(max_ticks=opts.max_ticks, checkpoint_path=opts.checkpoint,
+                   checkpoint_every=opts.checkpoint_every, resume_from=opts.resume)[-1]
     lead = math.log(cfg.p0**2 / 2.0 / cfg.mass) if cfg.model == "DAC" else cfg.p0
     print(lead, *last.population_mci)
     return 0

@@ -74,7 +74,8 @@ def config_to_torch(cfg) -> GPLEConfig:
 def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) -> GPLEDriver:
     """The port's driver in the state of an initialized ``gple_tpu`` driver:
     density, extra cloud and fitted states; the optimizer's lengths, off
-    parameters and magnitudes; ``mc_params``; the conserved targets
+    parameters, magnitudes, correlation bounds and warm multipliers;
+    ``mc_params``; the conserved targets
     (``total_energy``, ``purity``, ``purity_ratio``, ``_pop_sum0``) and the
     drift reference ``_fit_ref``.  ``rng`` is the port driver's root key (a
     stand-in replaying ``jax_driver.key`` makes both draw the same numbers)."""
@@ -90,7 +91,10 @@ def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) ->
         diag_lengths=np.array(jopt.diag_lengths), off_params=np.array(jopt.off_params),
         diag_magnitudes=np.array(jopt.diag_magnitudes),
         off_magnitude=float(jopt.off_magnitude), lbfgs_steps=jopt.lbfgs_steps,
-        opt_mode=jopt.opt_mode, off_len_div=float(jopt.off_len_div), device=device)
+        corr_bounds=tuple(float(b) for b in jopt.corr_bounds), opt_mode=jopt.opt_mode,
+        off_len_div=float(jopt.off_len_div), device=device)
+    if jopt._al_lam is not None:
+        drv.optimizer._al_lam = np.array(jopt._al_lam)
     res = jax_driver.opt_result
     drv.opt_result = OptResult(error=float(res.error), steps=list(res.steps),
                                opt_type=res.opt_type)

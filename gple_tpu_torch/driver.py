@@ -17,10 +17,18 @@ The reference main loop (``gaussian_process_liouville_equation/main.cpp:19-212``
 Ported: the production path -- the moment optimizer, the block-diagonal
 (corr = 0) complex fit, the raw-mean evolution distribution
 (``evolve_cutoff=False``), cloud tracking, Metropolis re-tuning and the walk
-surrogate, element activation, the output files -- run as the JAX package's
-boundary-chunked loop: a chunk is a Python loop of :func:`_tick_core` with
-one host pull of its boundary scalars.  :class:`GPLEDriver` raises
-``NotImplementedError`` at construction for any setting off that path.
+surrogate, element activation, the output files -- and the reference's own
+settings: the constrained ladder (``opt_mode="ladder"``), whose learnt
+correlation needs the full (2N, 2N) coherence fit, the cutoff evolution
+distribution (``evolve_cutoff=True``) and ``reference_parity`` (all of
+them, corr pinned to 1, the initial purity as the target).  Everything runs
+as the JAX package's boundary-chunked loop: a chunk is a Python loop of
+:func:`_tick_core` with one host pull of its boundary scalars, and a chunk
+ends at every scheduled reopt, output and checkpoint (``run``'s
+``checkpoint_path`` / ``checkpoint_every`` / ``resume_from``, the JAX
+package's ``.npz`` schema, :mod:`gple_tpu_torch.io.checkpoint`).
+:class:`GPLEDriver` raises ``NotImplementedError`` at construction for the
+settings still missing (the booster flags).
 
 Not ported, by design: the fused whole-segment scan with its rollback and
 replay, its event hints, the init cache and the persistent XLA cache.  They
@@ -49,6 +57,7 @@ from gple_tpu_torch.gp.opt import (
     INITIAL_NOISE,
     Optimizer,
 )
+from gple_tpu_torch.io import checkpoint as ckpt
 from gple_tpu_torch.io.writers import OutputWriters
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
@@ -82,6 +91,15 @@ def gp_dist_all_nocut(gps: GPStates, pts3):
     """Raw-mean GP predictions, no cutoff: the default evolution distribution
     (the fused mean kernels, no variance)."""
     return predict_all(gps, pts3, with_variance=False)
+
+
+def _evolve_dist_for(mode):
+    """The evolution distribution for a ``GPLEConfig.evolve_cutoff`` setting:
+    False = raw means, True = the cutoff predictions (the reference)."""
+    if mode == "coh":
+        raise NotImplementedError("evolve_cutoff='coh' is not ported (ROADMAP Queue A "
+                                  "item 13)")
+    return gp_dist_all if mode else gp_dist_all_nocut
 
 
 def _gp_dist_elem(gps: GPStates, pts, *, elem: int, cutoff: bool = True):
@@ -134,34 +152,37 @@ def _tick_core(model: str, mass: float, dt: float, density: Density,
     return new_density, new_extra, small, new_gps
 
 
-def _fit_states_obs(diag_params, off_params, density: Density):
-    """``fit_gp_states`` (block-diagonal) plus its integral observables."""
-    gps = fit_gp_states(diag_params, off_params, density, block_diag=True)
+def _fit_states_obs(diag_params, off_params, density: Density, block_diag: bool):
+    """``fit_gp_states`` plus its integral observables."""
+    gps = fit_gp_states(diag_params, off_params, density, block_diag=block_diag)
     return gps, gps.population(), gps.purity()
 
 
-def _regen_extra_core(n_extra: int, density: Density, gps: GPStates, keys) -> Density:
+def _regen_extra_core(n_extra: int, density: Density, gps: GPStates, keys,
+                      cutoff: bool) -> Density:
     """Regenerate the extra clouds from a fresh fit (reference mc.cpp:59-120
     via main.cpp:165-172): one key per active element (None for an inactive
     one, whose cloud is its first point repeated with zero labels), and all
-    three clouds labeled by one raw-mean :func:`predict_all` -- one kernel
-    launch for both diagonal elements and one for the coherence."""
+    three clouds labeled by one :func:`predict_all` (raw means, or the cutoff
+    predictions under ``evolve_cutoff=True``) -- one prediction for both
+    diagonal elements and one for the coherence."""
     pts = torch.stack([
         mc.jitter_points(keys[k], density.points[k], n_extra) if keys[k] is not None
         else density.points[k][:1].expand(n_extra, density.points.shape[-1])
         for k in range(NUM_ELEMENTS)])
-    rho = predict_all(gps, pts, with_variance=False)
+    rho = predict_all(gps, pts, with_variance=cutoff)
     return Density(points=pts, rho=rho, active=density.active)
 
 
 @torch.inference_mode()
-def _reopt_epilogue(n_extra: int, density: Density, diag_params, off_params, keys):
+def _reopt_epilogue(n_extra: int, density: Density, diag_params, off_params, keys,
+                    cutoff: bool = False, block_diag: bool = True):
     """Everything after a reoptimization's parameter choice: refit the GP
     states from the (possibly re-selected) cloud, regenerate the extra clouds
     labeled by the fresh fit, and the fit-reference integrals for the drift
     check.  Returns ``(gps, extra, population, purity)``."""
-    gps, pop, pur = _fit_states_obs(diag_params, off_params, density)
-    return gps, _regen_extra_core(n_extra, density, gps, keys), pop, pur
+    gps, pop, pur = _fit_states_obs(diag_params, off_params, density, block_diag)
+    return gps, _regen_extra_core(n_extra, density, gps, keys, cutoff), pop, pur
 
 
 #: walk-surrogate grid resolution per phase-space axis; 256 resolves the
@@ -178,15 +199,17 @@ def _linspace(lo, hi, num: int):
 
 
 @torch.inference_mode()
-def _surrogate_grid(model: str, mass: float, dt: float, elem: int, gps, lo, hi):
+def _surrogate_grid(model: str, mass: float, dt: float, elem: int, gps, lo, hi,
+                    dist=gp_dist_all_nocut):
     """|backward-branching prediction| of one element on a regular grid, in
-    ONE batched predictor call (the Metropolis chains then interpolate it,
-    see mc.element_monte_carlo ``walk``)."""
+    ONE batched predictor call of the evolution distribution ``dist`` (the
+    Metropolis chains then interpolate it, see mc.element_monte_carlo
+    ``walk``)."""
     xs = _linspace(lo[0], hi[0], _SURR_RES)
     ps = _linspace(lo[1], hi[1], _SURR_RES)
     gx, gp = torch.meshgrid(xs, ps, indexing="ij")
     pts = torch.stack([gx.reshape(-1), gp.reshape(-1)], dim=-1)
-    vals = EV.predict_new_points(model, mass, dt, pts, elem, gp_dist_all_nocut, gps)
+    vals = EV.predict_new_points(model, mass, dt, pts, elem, dist, gps)
     return ri.absval(vals).reshape(_SURR_RES, _SURR_RES)
 
 
@@ -265,16 +288,15 @@ class TickRecord:
 def _unported(cfg: GPLEConfig) -> List[str]:
     """The settings of ``cfg`` that the port's driver does not implement."""
     checks = (
-        (cfg.opt_mode != "moment" or cfg.reference_parity,
-         "opt_mode='ladder' / reference_parity (the constrained ladder, ROADMAP Queue A "
-         "item 11)"),
-        (cfg.coh_fit_extra > 0, "coh_fit_extra > 0 (the coherence booster, item 13)"),
+        (cfg.opt_mode not in ("moment", "ladder"), f"opt_mode={cfg.opt_mode!r}"),
+        (cfg.coh_fit_extra > 0, "coh_fit_extra > 0 (the coherence booster, ROADMAP Queue A "
+         "item 13)"),
         (bool(cfg.moment_per_tick), "moment_per_tick (item 13)"),
         (cfg.pop_rescale, "pop_rescale (item 13)"),
         (cfg.coh_boost_rescale, "coh_boost_rescale (item 13)"),
         (cfg.relabel_conserve, "relabel_conserve (item 13)"),
         (cfg.relabel_mask_coh, "relabel_mask_coh (item 13)"),
-        (cfg.evolve_cutoff is not False, "evolve_cutoff other than False (item 13)"),
+        (cfg.evolve_cutoff not in (False, True), "evolve_cutoff='coh' (item 13)"),
         (cfg.init_cache, "init_cache (TPU machinery, not to port)"),
     )
     return [what for bad, what in checks if bad]
@@ -317,6 +339,8 @@ class GPLEDriver:
         #: effective coherence lengthscale divisor, stickily halved by the
         #: fit-health backoff (GPLEConfig.coh_fit_health_factor)
         self._coh_div_eff = float(cfg.coh_len_div)
+        #: the evolution distribution (GPLEConfig.evolve_cutoff)
+        self._evolve_dist = _evolve_dist_for(cfg.evolve_cutoff)
 
     def _log(self, msg):
         if self.verbose:
@@ -329,7 +353,18 @@ class GPLEDriver:
     def _new_point_dist(self, params, pts, *, elem: int):
         cfg = self.cfg
         return EV.predict_new_points(cfg.model, cfg.mass, cfg.dt, pts, elem,
-                                     gp_dist_all_nocut, params)
+                                     self._evolve_dist, params)
+
+    def _block_diag(self) -> bool:
+        """True when the coherence fit may run block-diagonal (corr = 0): the
+        moment optimizer never sets a nonzero Re-Im correlation, so its fits
+        split into two (N, N) SPD solves.  Checked against the live
+        parameter vector, so a resumed checkpoint with corr != 0 never drops
+        its correlation; the ladder always fits the full (2N, 2N) embedding."""
+        if self.cfg.opt_mode != "moment":
+            return False
+        opt = getattr(self, "optimizer", None)
+        return opt is None or float(np.asarray(opt.off_params)[-1]) == 0.0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -387,7 +422,8 @@ class GPLEDriver:
             model=cfg.model, mass=cfg.mass, total_energy=self.total_energy,
             purity=self.purity, sigma_r0=np.asarray(cfg.sigma_r0),
             lbfgs_steps=cfg.opt_steps_initial, opt_mode=cfg.opt_mode,
-            off_len_div=cfg.coh_len_div, device=self.device)
+            corr_bounds=self._corr_bounds(), off_len_div=cfg.coh_len_div,
+            device=self.device)
         self.opt_result = self.optimizer.optimize(density, extra, energies)
         marks.append(("optimize", time.perf_counter()))
         self.optimizer.lbfgs_steps = cfg.opt_steps_reopt
@@ -416,9 +452,14 @@ class GPLEDriver:
             rho.append(r)
         return Density(points=torch.stack(pts), rho=torch.stack(rho), active=density.active)
 
+    def _corr_bounds(self) -> tuple:
+        """The optimizer's Re-Im correlation box: pinned to 1 (the reference
+        kernel) under ``reference_parity``."""
+        return (1.0, 1.0) if self.cfg.reference_parity else (-CORR_BOUND, CORR_BOUND)
+
     def _refit(self, density: Density) -> GPStates:
         diag_params, off_params = self.optimizer.fitted_params()
-        gps, pop, pur = _fit_states_obs(diag_params, off_params, density)
+        gps, pop, pur = _fit_states_obs(diag_params, off_params, density, self._block_diag())
         # kept for the following _record_fit_ref
         self._fit_obs = (pop, pur)
         return gps
@@ -463,7 +504,7 @@ class GPLEDriver:
         for _ in range(n_ticks):
             density, extra, small, gps = _tick_core(
                 cfg.model, cfg.mass, cfg.dt, density, extra, gps, diag_params, off_params,
-                gp_dist_all_nocut, "none", 0, self._coh_div_eff, True)
+                self._evolve_dist, "none", 0, self._coh_div_eff, self._block_diag())
             smalls.append(small)
         smalls, active, pop, pur, mc_pur = _pull(
             torch.stack(smalls), self.density.active, gps.population(), gps.purity(),
@@ -494,7 +535,8 @@ class GPLEDriver:
         active = density.active.cpu().numpy()
         keys = [self._split() if active[k] else None for k in range(NUM_ELEMENTS)]
         self.gps, self.extra, pop, pur = _reopt_epilogue(
-            cfg.num_extra_points, density, diag_params, off_params, keys)
+            cfg.num_extra_points, density, diag_params, off_params, keys,
+            bool(cfg.evolve_cutoff), self._block_diag())
         pop, pur = _pull(pop, pur)
         # coherence fit-health backoff (GPLEConfig.coh_fit_health_factor):
         # stickily lengthen the coherence lengths while the purity integral
@@ -510,7 +552,8 @@ class GPLEDriver:
             self.opt_result = self.optimizer.optimize(density, self.extra, energies)
             diag_params, off_params = self.optimizer.fitted_params()
             self.gps, self.extra, pop, pur = _reopt_epilogue(
-                cfg.num_extra_points, density, diag_params, off_params, keys)
+                cfg.num_extra_points, density, diag_params, off_params, keys,
+                bool(cfg.evolve_cutoff), self._block_diag())
             pop, pur = _pull(pop, pur)
         self._fit_ref = {"pop": float(pop), "pur": float(pur),
                          "target": max(float(target_purity), 1e-30)}
@@ -530,7 +573,8 @@ class GPLEDriver:
         diag_params, off_params = self.optimizer.fitted_params()
         density, extra, small, new_gps = _tick_core(
             cfg.model, cfg.mass, cfg.dt, self.density, self.extra, self.gps,
-            diag_params, off_params, gp_dist_all_nocut, "none", 0, self._coh_div_eff, True)
+            diag_params, off_params, self._evolve_dist, "none", 0, self._coh_div_eff,
+            self._block_diag())
         small, old_active, pop, pur, mc_pur = _pull(
             small, density.active, new_gps.population(), new_gps.purity(),
             torch.sum(OBS.purity_each_element(density)))
@@ -573,7 +617,7 @@ class GPLEDriver:
         safe = live._replace(real_lengths=live.real_lengths * scale,
                              imag_lengths=live.imag_lengths * scale)
         off = CK.fit_complex(safe, density.points[OFFDIAG_INDEX],
-                             density.rho[OFFDIAG_INDEX], block_diag=True)
+                             density.rho[OFFDIAG_INDEX], block_diag=self._block_diag())
         return GPStates(diag=self.gps.diag, offdiag=off, active=self.gps.active)
 
     def _walk_surrogate(self, gps, elem: int, density: Density, extra: Density):
@@ -590,7 +634,8 @@ class GPLEDriver:
         span = hi - lo
         lo = lo - 0.5 * span
         hi = hi + 0.5 * span
-        grid = _surrogate_grid(cfg.model, cfg.mass, cfg.dt, elem, gps, lo, hi)
+        grid = _surrogate_grid(cfg.model, cfg.mass, cfg.dt, elem, gps, lo, hi,
+                               self._evolve_dist)
         return (_surrogate_dist, (grid, lo, hi))
 
     def _track_clouds(self, density: Density) -> Density:
@@ -728,38 +773,52 @@ class GPLEDriver:
             opt_steps=sum(steps) if isinstance(steps, (list, tuple)) else steps)
 
     # -- full run (main.cpp:132-202) ----------------------------------------------------
-    def run(self, max_ticks: Optional[int] = None,
-            callback: Optional[Callable] = None) -> List[TickRecord]:
-        """Initialize, then advance in boundary-aligned chunks: every tick
-        up to the next scheduled reopt or output is one :meth:`_advance_chunk`
-        (replayed through :meth:`step` when an element activates inside it),
-        and the boundary tick itself goes through :meth:`step`."""
+    def run(self, max_ticks: Optional[int] = None, callback: Optional[Callable] = None,
+            checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+            resume_from: Optional[str] = None) -> List[TickRecord]:
+        """Initialize (or restore ``resume_from``, a checkpoint of either
+        package), then advance in boundary-aligned chunks: every tick up to
+        the next scheduled reopt, output or checkpoint is one
+        :meth:`_advance_chunk` (replayed through :meth:`step` when an element
+        activates inside it), and the boundary tick itself goes through
+        :meth:`step`.  With ``checkpoint_path`` and ``checkpoint_every``, the
+        state is written to ``checkpoint_path`` after every multiple of
+        ``checkpoint_every``."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        self.initialize()
-        self.phase_times["init"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.observe(0, self.opt_result.opt_type)
-        self.phase_times["output"] += time.perf_counter() - t0
+        if resume_from:
+            start = ckpt.load_checkpoint(resume_from, self) + 1
+            self.phase_times["init"] += time.perf_counter() - t0
+            self._log(f"resumed from {resume_from} at tick {start}")
+        else:
+            self.initialize()
+            self.phase_times["init"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.observe(0, self.opt_result.opt_type)
+            self.phase_times["output"] += time.perf_counter() - t0
+            start = 1
         total = cfg.total_ticks if max_ticks is None else min(cfg.total_ticks, max_ticks)
-        self._advance(1, total, callback)
+        every = checkpoint_every if checkpoint_path else 0
+        self._advance(start, total, callback, checkpoint_path, every)
         self._log(f"phase wall times: {self.phase_times}")
         if self.writers:
             self.writers.close()
         return self.history
 
-    def _advance(self, tick: int, total: int, callback=None):
+    def _advance(self, tick: int, total: int, callback=None,
+                 checkpoint_path: Optional[str] = None, checkpoint_every: int = 0):
         """The loop of :meth:`run` from ``tick`` to ``total`` (inclusive)."""
         cfg = self.cfg
 
         def next_multiple(t: int, k: int) -> int:
-            return ((t + k - 1) // k) * k
+            return ((t + k - 1) // k) * k if k else total
 
         while tick <= total:
-            # the next tick where the host must intervene: scheduled reopt or
-            # output; everything before it is one chunk
+            # the next tick where the host must intervene: scheduled reopt,
+            # output or checkpoint; everything before it is one chunk
             boundary = min(next_multiple(tick, cfg.reopt_freq),
-                           next_multiple(tick, cfg.output_freq), total)
+                           next_multiple(tick, cfg.output_freq),
+                           next_multiple(tick, checkpoint_every), total)
             n_pre = boundary - tick
             # only the steady-state chunk length is chunked, as in the JAX
             # package; odd remainders go tick by tick
@@ -769,6 +828,8 @@ class GPLEDriver:
                     self.step(t)
             tick = boundary
             opt_type = self.step(tick)
+            if checkpoint_every and tick % checkpoint_every == 0:
+                ckpt.save_checkpoint(checkpoint_path, self, tick)
             if tick % cfg.output_freq == 0:
                 t0 = time.perf_counter()
                 rec = self.observe(tick, opt_type)

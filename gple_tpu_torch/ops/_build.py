@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``gple_tpu_torch/csrc/*.cu``).
 
 The sources have a plain C interface, so they compile with ``nvcc`` alone in
-seconds (no PyTorch headers) into one shared library, which is loaded with
-``ctypes``.  The library goes to ``gple_tpu_torch/_build/``, named by a hash
+seconds (no PyTorch headers), one ``nvcc`` per source, all started together,
+and link into one shared library, which is loaded with ``ctypes``.  The library goes to ``gple_tpu_torch/_build/``, named by a hash
 of the sources and flags, so an edited source is rebuilt and an unchanged one
 is reused.  Nothing here runs at import time: the first kernel launch builds.
 """
@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rbf_gram.cu", "rbf_predict.cu")
+SOURCES = ("rbf_gram.cu", "rbf_predict.cu", "rbf_vjp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +33,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "rbf_gram": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_P],
     "rbf_predict_mean": [_P] * 6 + [_I] * 7 + [_L] * 11 + [_P],
+    "rbf_gram_vjp": [_P] * 6 + [_I] * 4 + [_L] * 11 + [_P],
+    "rbf_predict_vjp": [_P] * 7 + [_I] * 5 + [_L] * 14 + [_P],
 }
 
 _C_TYPES = {"int": _I, "long long": _L}
@@ -74,6 +76,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def compile_library(sources, target: Path, defines=()) -> str:
+    """Compile ``sources`` (paths) into the shared library ``target``: one
+    ``nvcc -c`` per source, all started together, then one link.  Returns the
+    compilers' output; raises RuntimeError on a failed compile or link."""
+    nvcc = find_nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = str(Path(tmp) / (Path(src).stem + ".o"))
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *flags, *defines, "-c", "-o", obj, str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+        log = "".join(out for out, _ in outs)
+        if any(rc != 0 for _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(target), *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    return log
+
+
 def _digest() -> str:
     h = hashlib.sha256()
     for name in SOURCES:
@@ -97,12 +125,11 @@ def library() -> ctypes.CDLL:
         # a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            log = compile_library([CSRC / s for s in SOURCES], Path(tmp))
+        except RuntimeError:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for prefix, argtypes in _SIGNATURES.items():

@@ -1,8 +1,11 @@
 """Positive-definite linear algebra: the interface of :mod:`gple_tpu.ops.linalg`.
 
 Every inverse is the direct Cholesky inverse, the JAX package's CPU branch
-(``_direct_inverse``): batched ``torch.linalg.cholesky`` and
-``torch.cholesky_inverse``, then symmetrisation.  The warm-start variants
+(``_direct_inverse``): batched ``torch.linalg.cholesky_ex`` and
+``torch.cholesky_inverse``, then symmetrisation.  A matrix that is not
+positive definite gives NaN, as the JAX package's Cholesky does, instead of
+an error: the constrained ladder's losses map NaN to a large value and move
+on, and no host sync checks the factorization.  The warm-start variants
 ignore the warm start, as that CPU branch does.  Autograd differentiates the
 Cholesky route directly, so no custom derivative rule is needed.
 
@@ -19,7 +22,8 @@ import torch
 
 
 def _direct_inverse(k):
-    chol = torch.linalg.cholesky(k)
+    chol, info = torch.linalg.cholesky_ex(k)
+    chol = torch.where((info == 0)[..., None, None], chol, float("nan"))
     kinv = torch.cholesky_inverse(chol)
     return 0.5 * (kinv + kinv.transpose(-1, -2))
 

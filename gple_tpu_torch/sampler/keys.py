@@ -13,7 +13,8 @@ do that).  The methods:
 * ``uniform(shape, low, high)`` and ``normal(shape)`` -- float64 draws of
   shape ``batch + shape``; ``low`` and ``high`` broadcast against the batch.
 
-A key is a 63-bit seed.  A split hashes the parent's seed with the child's
+A key is an integer seed (63 bits where a split derives it; a checkpoint may
+carry any seed below 2^64, see :mod:`gple_tpu_torch.io.checkpoint`).  A split hashes the parent's seed with the child's
 position (``numpy.random.SeedSequence``) into the child's seed, and a draw
 seeds a fresh ``torch.Generator`` on the key's device with the key's seed, so
 the same seed gives the same run, a split costs no device work, and a

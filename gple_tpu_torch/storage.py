@@ -8,10 +8,13 @@ tensors.  Element order is row-major lower-triangular: index 0 = (0,0),
 
 The refit :func:`fit_gp_states` builds all five (N, N) grams of a step --
 the two diagonal kernels and the coherence's real, imaginary and correlation
-sub-grams -- in ONE ``gram_rbf`` launch and solves the four SPD systems as one
-batched Cholesky.  Ported: the block-diagonal production path without the
-coherence booster (``off_extra``).  The JAX package's ``GPLE_BATCHED_NS``
-environment switch selected between TPU inverse chains and is not carried over.
+sub-grams -- in ONE ``gram_rbf`` launch.  The block-diagonal production path
+(corr = 0) solves its four (N, N) SPD systems as one batched Cholesky; the
+full path (any corr: the constrained ladder, ``reference_parity``) solves the
+two diagonal systems as one batched Cholesky and the coherence's (2N, 2N)
+embedding as another.  The coherence booster (``off_extra``) is not ported.
+The JAX package's ``GPLE_BATCHED_NS`` environment switch selected between TPU
+inverse chains and is not carried over.
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ import torch
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.ops.gram_kernels import gram_rbf
-from gple_tpu_torch.ops.linalg import psd_inverse_batched, psd_inverse_warm_batched
+from gple_tpu_torch.ops.linalg import (
+    psd_inverse,
+    psd_inverse_batched,
+    psd_inverse_warm,
+    psd_inverse_warm_batched,
+)
 from gple_tpu_torch.utils import ri
 
 #: lower-triangular element order (row, col) for NumPES = 2
@@ -102,9 +110,9 @@ def fit_gp_states(
     ``prev`` is the previous tick's states (the warm start, which the direct
     Cholesky does not need).  ``block_diag``: the caller guarantees the
     off-diagonal corr parameter is 0, so the complex fit splits into two
-    (N, N) blocks.  Only that path, with ``off_extra=None``, is ported."""
-    if not block_diag:
-        raise NotImplementedError("fit_gp_states: only block_diag=True is ported")
+    (N, N) blocks; otherwise the coherence is fitted through its full (2N, 2N)
+    embedding, warm-started from ``prev.offdiag.augmented_inverse()``.
+    ``off_extra`` must be None."""
     if off_extra is not None:
         raise NotImplementedError("fit_gp_states: the off_extra coherence booster "
                                   "is not ported")
@@ -124,6 +132,17 @@ def fit_gp_states(
     k_d = RK.scale_gram(diag_params, g[:2], same=True)
     k64, kt_re64, kt_im64 = CK.covariance_from_grams(offdiag_params, g[2], g[3], g[4],
                                                       same=True)
+    if not block_diag:
+        m = CK.augmented_matrix(k64, kt_re64, kt_im64)
+        if prev is None:
+            kinv_d, w = psd_inverse_batched(k_d), psd_inverse(m)
+        else:
+            kinv_d = psd_inverse_warm_batched(k_d, prev.diag.kinv)
+            w = psd_inverse_warm(m, prev.offdiag.augmented_inverse())
+        diag = RK.finish_real_fit(diag_params, diag_pts, diag_rho, k_d, kinv_d)
+        off = CK.finish_complex_fit_full(offdiag_params, off_pts, off_rho, k64, kt_re64,
+                                         kt_im64, w)
+        return GPStates(diag=diag, offdiag=off, active=density.active)
     ks = torch.cat([k_d, torch.stack([k64 + kt_re64, k64 - kt_re64])])
     if prev is None:
         winv = psd_inverse_batched(ks)

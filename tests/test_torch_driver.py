@@ -208,14 +208,22 @@ def test_short_run_files_match_jax_layout(short_run, gate):
 # -- construction ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("setting", [
-    dict(opt_mode="ladder"), dict(reference_parity=True), dict(coh_fit_extra=8),
-    dict(moment_per_tick=True), dict(pop_rescale=True), dict(coh_boost_rescale=True),
-    dict(relabel_conserve=True), dict(relabel_mask_coh=True), dict(evolve_cutoff=True),
-    dict(evolve_cutoff="coh"), dict(init_cache=True),
+    dict(coh_fit_extra=8), dict(moment_per_tick=True), dict(pop_rescale=True),
+    dict(coh_boost_rescale=True), dict(relabel_conserve=True), dict(relabel_mask_coh=True),
+    dict(evolve_cutoff="coh"), dict(init_cache=True), dict(opt_mode="ladder", pop_rescale=True),
 ])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError, match="not ported"):
         GPLEDriver(GPLEConfig(**setting), device="cpu")
+
+
+@pytest.mark.parametrize("setting", [
+    dict(opt_mode="ladder"), dict(reference_parity=True), dict(evolve_cutoff=True),
+])
+def test_reference_settings_construct(setting):
+    drv = GPLEDriver(GPLEConfig(**setting), device="cpu")
+    assert drv._block_diag() == (drv.cfg.opt_mode == "moment")
+    assert drv._corr_bounds() == ((1.0, 1.0) if drv.cfg.reference_parity else (-0.99, 0.99))
 
 
 def test_fused_chunk_is_accepted_and_cuda_is_the_default(monkeypatch):

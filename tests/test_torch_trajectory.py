@@ -171,13 +171,7 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     assert len(last) == 3 and float(last[1]) == pytest.approx(1.0, abs=1e-3)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["se"], "item 12"), (["le"], "item 12"),
-    (["gple", "--resume", "ckpt.npz"], "item 10"),
-    (["gple", "--checkpoint", "c.npz"], "item 10"),
-    (["gple", "--opt-mode", "ladder"], "item 11"),
-    (["gple", "--reference-parity"], "item 11"),
-])
+@pytest.mark.parametrize("argv,item", [(["se"], "item 12"), (["le"], "item 12")])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
