@@ -23,8 +23,11 @@ Phases (any failure raises and the script exits non-zero):
    seven files); conservation, finiteness and files checked, and the walls
    of the initialization phases, the ticks, the reopts and the outputs;
 7. crossing: ``entry.crossing_config()`` for 240 ticks through the avoided
-   crossing (element activations, cloud re-selections), its populations held
-   against the committed DVR table ``gple_tpu_torch/data/sac_crossing_dvr.json``;
+   crossing (element activations, cloud re-selections); the exact populations
+   come from the port's own DVR oracle on the card
+   (``entry.crossing_dvr_config()``), held against the committed table
+   ``gple_tpu_torch/data/sac_crossing_dvr.json`` (the JAX package's values)
+   to 1e-8, and the trajectory's RMSE is taken against them;
 8. kernels at the trajectory's shapes: every (kernel, shape) that phases 6
    and 7 launched, checked and timed as in phase 3;
 9. VJP kernels: ``rbf_gram_vjp`` and ``rbf_predict_vjp`` against their plain
@@ -41,11 +44,35 @@ Phases (any failure raises and the script exits non-zero):
    must match the straight run's to 5e-3; the walls of the initialization
    (with the ladder), the ticks, the reopts and the outputs;
 12. kernels at the ladder's shapes: every (kernel, shape) that phases 10 and
-   11 launched and no earlier phase checked, checked and timed as in phase 3.
+   11 launched and no earlier phase checked, checked and timed as in phase 3;
+13. oracles at the production input (SAC, x0 = -10, p0 = 30, sigma_p = 1.5,
+   x in [-20, 20]): ``cli.main(["se", ..., "--boundary", "absorbing",
+   "--no-wigner"])`` on the card to its stop condition (the walls of H with
+   its ``eigh`` and of a Strang step; norm and energy before the absorber);
+   the Wigner frames of phase 14's two snapshots at n = 1295, one timed and
+   held against the same transform on the CPU; ``LiouvilleSolver`` for 20 outputs (a Trotter step's wall, the
+   norm, the Hermiticity); then both oracles on ``tests/test_validation.py``'s
+   physics (n = 385 / 97) on the card against the CPU (1e-9 relative; the
+   DVR run whole, the Liouville rho after 400 Trotter steps) and against each
+   other (populations within 0.05);
+14. validation: ``screenshot_fit`` axis-aligned and full-ARD on two frames
+   of the production DVR (1,677,025 grid points, 200 selected): the initial
+   packet, and the packet at <x> = -4 (t = 400), whose Wigner function free
+   flight has tilted; ``evolve_fit`` over every frame of phase 13's
+   ``test_validation`` run, and the tilted snapshot of
+   ``tests/test_full_ard.py``; held to those tests' bounds (the axis-aligned
+   fit of the tilted production frame is recorded, and must lose to the
+   full-ARD fit by the factor the tilted snapshot must); then one NLL loss
+   and its gradient (vector and full-ARD, N = 200) on the card against the
+   CPU (1e-9 relative);
+15. kernels at the validation's shapes: every (kernel, shape) that phases 13
+   and 14 launched and no earlier phase checked, checked and timed as in
+   phase 3 (``rbf_gram_vjp_points`` with its cotangent read both ways).
 
-Each of phases 5-7, 10 and 11 resets the launch counters just before it and
-reads them just after; every forward kernel must have launched in each, and
-the two VJP kernels in phases 10 and 11.  The second-to-last
+Each of phases 5-7, 10, 11 and 14 resets the launch counters just before it
+and reads them just after; every forward kernel must have launched in each,
+the two length VJP kernels in phases 10 and 11, and ``rbf_gram_vjp_points``
+in phase 14.  The second-to-last
 lines are a JSON object ``{"kernels": [...]}`` and the ``nvidia-smi``
 name/power line; the last line is ``{"ok": true, "device": {...}}``.  TF32 is
 off for matmuls and convolutions: the port computes in float64, and float32
@@ -81,7 +108,18 @@ LADDER_STEPS = 30
 TOL_LADDER_AGREE = 1e-8     # GPU against CPU loss and gradient, relative
 RP_TICKS, RP_CHECKPOINT = 20, 10
 TOL_RESUME = 5e-3           # tests/test_checkpoint.py:78
+TOL_DVR_TABLE = 1e-8        # the port's DVR on the card against the JAX package's table
+LE_OUTPUTS = 20             # phase 13's production Liouville run
+LE_CPU_STEPS = 400          # Trotter steps of phase 13's Liouville card-against-CPU check
+TOL_ORACLE_AGREE = 1e-9     # card against CPU, relative to the largest |entry|
+TOL_ORACLE_CROSS = 0.05     # DVR against Liouville populations, tests/test_liouville.py:87
+TOL_WIGNER_CPU = 1e-10      # one production Wigner frame, card against CPU, relative
+TOL_CONSERVED = 1e-6        # norm and energy of the absorbing DVR before the absorber
+#: tests/test_validation.py's and tests/test_full_ard.py's bounds
+VAL_REL_RMSE, VAL_POP_REL, FULL_ARD_GAIN = 5e-3, 0.02, 0.7
+TOL_NLL_AGREE = 1e-9        # NLL loss and gradient, card against CPU, relative
 FORWARD = ("rbf_gram", "rbf_predict_mean")
+LENGTH_VJPS = ("rbf_gram_vjp", "rbf_predict_vjp")
 DVR_TABLE = Path(__file__).resolve().parent / "gple_tpu_torch" / "data" / "sac_crossing_dvr.json"
 OUTPUT_FILES = ("ave.txt", "param.txt", "coord.txt", "value.txt", "phase.txt", "var.txt",
                 "run.log")
@@ -162,12 +200,45 @@ def kernel_phase(gram_cases=None, predict_cases=None, vjp_cases=()):
     return cases
 
 
+def _points_case(lib, rng, dev, case):
+    """One ``rbf_gram_vjp_points`` shape: the wrapper twice on a contiguous
+    cotangent and once on a transposed view of one (the second point set's
+    read), each against the plain version; the bare launch and the plain
+    version timed."""
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import kernel_bench as KB
+
+    l = KB.lengths_like(rng, case.batch, dev, case.dtype)
+    xa = KB.cloud(rng, case.batch, case.na, dev, case.dtype)
+    xb = KB.cloud(rng, case.batch, case.nb, dev, case.dtype)
+    gw = torch.tensor(rng.normal(size=(case.batch, case.na, case.nb)), dtype=case.dtype,
+                      device=dev)
+    gt = torch.tensor(rng.normal(size=(case.batch, case.nb, case.na)), dtype=case.dtype,
+                      device=dev).transpose(1, 2)
+    out, again = GK.gram_vjp_points_cuda(l, xa, xb, gw), GK.gram_vjp_points_cuda(l, xa, xb, gw)
+    out_t = GK.gram_vjp_points_cuda(l, xa, xb, gt)
+    ref, ref_t = GK.gram_vjp_points_plain(l, xa, xb, gw), GK.gram_vjp_points_plain(l, xa, xb, gt)
+    torch.cuda.synchronize()
+    err = max((out - ref).abs().max().item(), (out_t - ref_t).abs().max().item())
+    rel = max(_rel(out.cpu(), ref.cpu()), _rel(out_t.cpu(), ref_t.cpu()))
+    ms = KB.device_ms(KB.raw_points_vjp(lib, l, xa, xb, gw, torch.empty_like(out)))
+    plain_ms = KB.device_ms(lambda: GK.gram_vjp_points_plain(l, xa, xb, gw), launches=3,
+                            min_ms=0, repeats=3)
+    bound, by = KB.gram_vjp_points_bound(case.batch, case.na, case.nb, 2, case.dtype.itemsize)
+    return dict(kernel=case.kernel, shape=case.shape, key=case.key, what=case.what,
+                per_step=0, per_tick=0, max_abs_err=err, rel_err=rel, tol=TOL_VJP,
+                bitwise_repeat=bool(torch.equal(out, again)), ms=ms, plain_ms=plain_ms,
+                bound_us=bound * 1e3, bound_by=by, share=bound / ms)
+
+
 def _vjp_case(lib, rng, dev, case):
     """One VJP kernel shape: the wrapper twice and the plain version on the
     same inputs, then the bare launch and the plain version timed."""
     from gple_tpu_torch.ops import gram_kernels as GK
     from gple_tpu_torch.ops import kernel_bench as KB
 
+    if isinstance(case, KB.PointsVjpCase):
+        return _points_case(lib, rng, dev, case)
     l = KB.lengths_like(rng, case.batch, dev, case.dtype)
     xa = KB.cloud(rng, case.batch, case.na, dev, case.dtype)
     xb = KB.cloud(rng, case.batch, case.nb, dev, case.dtype)
@@ -412,13 +483,24 @@ def trajectory_phase():
 
 
 def crossing_phase():
-    """The crossing trajectory on the card against the exact DVR populations."""
+    """The crossing trajectory on the card against the exact DVR populations,
+    computed by the port's DVR oracle on the card and held to the committed
+    table."""
     from gple_tpu_torch.driver import GPLEDriver
-    from gple_tpu_torch.entry import crossing_config
+    from gple_tpu_torch.entry import crossing_config, crossing_dvr_config
+    from gple_tpu_torch.oracles import DVRSolver
     from gple_tpu_torch.ops import gram_kernels as GK
 
     with open(DVR_TABLE) as f:
         table = json.load(f)
+    t0 = time.perf_counter()
+    dvr = DVRSolver(crossing_dvr_config(), "cuda").run(store_wigner=False)
+    dvr_s = time.perf_counter() - t0
+    table_err = float(np.max(np.abs(dvr.populations - np.array(table["populations"]))))
+    log(f"crossing: the port's DVR on the card in {dvr_s!r} s, {len(dvr.times)} outputs, "
+        f"max |populations - table| {table_err!r}")
+    if not (np.array_equal(dvr.times, table["times"]) and table_err <= TOL_DVR_TABLE):
+        raise AssertionError(f"crossing: the port's DVR differs from the table: {table_err}")
     drv = GPLEDriver(crossing_config(), device="cuda")
     torch.cuda.synchronize()
     GK.reset_launches()
@@ -429,7 +511,7 @@ def crossing_phase():
     launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
     gt = np.array([r.time for r in hist])
     gp0 = np.array([r.population_mci[0] for r in hist])
-    sp0 = np.interp(gt, table["times"], np.array(table["populations"])[:, 0])
+    sp0 = np.interp(gt, dvr.times, dvr.populations[:, 0])
     rmse = float(np.sqrt(np.mean((gp0 - sp0) ** 2)))
     pop_dev = float(np.max(np.abs([r.population_mci.sum() - 1.0 for r in hist])))
     result = dict(run_s=wall, ticks=CROSS_TICKS, records=len(hist), rmse_vs_dvr=rmse,
@@ -451,18 +533,6 @@ def crossing_phase():
         raise AssertionError(f"crossing: RMSE vs DVR {rmse} >= 0.055")
     _check_path_launches("crossing", launches)
     return launches, by_shape, result
-
-
-def trajectory_kernel_phase(traj_by_shape, cross_by_shape):
-    """Phase 3's checks and times at every (kernel, shape) that the trajectory
-    and crossing phases launched and phase 3 does not cover."""
-    from gple_tpu_torch.ops import kernel_bench as KB
-
-    keys = set(traj_by_shape) | set(cross_by_shape)
-    grams, predicts, vjps = KB.cases_from_launches(keys, "trajectory / crossing")
-    cases = kernel_phase(grams, predicts, vjps)
-    log(f"trajectory kernel phase: {len(cases)} new (kernel, shape) cases")
-    return cases
 
 
 def vjp_phase():
@@ -526,7 +596,7 @@ def ladder_phase():
         raise AssertionError(f"ladder: result {res}")
     if not all(np.all(np.isfinite(st["averages"])) for st in stages):
         raise AssertionError("ladder: non-finite averages")
-    _check_path_launches("ladder", launches, tuple(launches))
+    _check_path_launches("ladder", launches, FORWARD + LENGTH_VJPS)
     return launches, by_shape, result
 
 
@@ -664,28 +734,346 @@ def parity_phase():
     if not walls["resume_max_abs_diff"] <= TOL_RESUME:
         raise AssertionError(f"reference parity: the resumed populations {rpop} differ from "
                              f"the straight run's {pop}")
-    _check_path_launches("reference parity", launches, tuple(launches))
+    _check_path_launches("reference parity", launches, FORWARD + LENGTH_VJPS)
     return launches, by_shape, resume_by_shape, walls
 
 
-def ladder_kernel_phase(known, *by_shapes):
-    """Phase 12: phase 3's checks and times at every (kernel, shape) that the
-    ladder and the reference-parity phases launched and no earlier phase
-    checked."""
+def new_shapes_phase(what: str, known, *by_shapes):
+    """Phases 8, 12 and 15: phase 3's checks and times at every (kernel,
+    shape) that the ``what`` phases launched (``by_shapes``, their
+    ``LAUNCHES_BY_SHAPE``) and no earlier phase checked (``known``)."""
     from gple_tpu_torch.ops import kernel_bench as KB
 
     keys = set().union(*by_shapes)
-    grams, predicts, vjps = KB.cases_from_launches(keys, "ladder / reference parity",
-                                                   known=known)
+    grams, predicts, vjps = KB.cases_from_launches(keys, what, known=known)
     cases = kernel_phase(grams, predicts, vjps)
-    log(f"ladder kernel phase: {len(cases)} new (kernel, shape) cases")
+    log(f"{what} kernel phase: {len(cases)} new (kernel, shape) cases")
     return cases
+
+
+def _timed(cls, name, calls):
+    """Wrap ``cls.name`` so each call records (seconds after a synchronize,
+    the instance, the arguments, the result) in ``calls[name]``; returns the
+    undo."""
+    inner = getattr(cls, name)
+
+    def wrapped(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(self, *args, **kw)
+        torch.cuda.synchronize()
+        calls.setdefault(name, []).append((time.perf_counter() - t0, self, args, out))
+        return out
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, inner)
+
+
+def _write_input(path, cfg):
+    """The reference's 8-field input file of a ``GPLEConfig``."""
+    fields = (("mass", cfg.mass), ("x0", cfg.x0), ("p0", cfg.p0), ("sigma p0", cfg.sigma_p0),
+              ("output time", cfg.output_time), ("reoptimization time", cfg.reopt_time),
+              ("dt", cfg.dt), ("number of points", cfg.num_points))
+    Path(path).write_text("".join(f"{name}\n{value}\n" for name, value in fields))
+
+
+def _rel(ours, theirs) -> float:
+    ours, theirs = np.asarray(ours), np.asarray(theirs)
+    return float(np.abs(ours - theirs).max() / np.abs(theirs).max())
+
+
+#: outputs of the production DVR that phase 14 fits: the initial packet, and
+#: the packet at <x> = -4 before the crossing (t = 400), sheared in phase space
+#: by its free flight (a tilted Wigner function)
+SHOT_FRAMES = (0, 40)
+#: points of each evolve_fit snapshot (tests/test_validation.py:66)
+EVOLVE_POINTS = 150
+#: tests/test_validation.py's DVR physics (n = 385; the Liouville grid n = 97)
+VALIDATION_PHYSICS = dict(model=MODEL, mass=MASS, x0=-4.0, p0=20.0, sigma_p=1.0, xmin=-6.0,
+                          xmax=6.0, dx_input=1.0, output_time=250.0, dt_input=1.0)
+
+
+def oracles_phase():
+    """Phase 13: the ``se`` CLI and the Liouville solver at the production
+    input on the card, the Wigner frames of phase 14's snapshots, and both
+    oracles on the validation physics on the card against the CPU."""
+    from gple_tpu_torch import cli
+    from gple_tpu_torch.entry import trajectory_config
+    from gple_tpu_torch.ops import kernel_bench as KB
+    from gple_tpu_torch.oracles import liouville as L
+    from gple_tpu_torch.oracles import schrodinger as S
+
+    cfg = trajectory_config(TRAJ_N)
+    calls = {}
+    undo = [_timed(S.DVRSolver, name, calls) for name in ("__init__", "_strang_steps", "run")]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _write_input(f"{tmp}/input", cfg)
+            t0 = time.perf_counter()
+            rc = cli.main(["se", "--input", f"{tmp}/input", "--outdir", f"{tmp}/se",
+                           "--model", MODEL, "--boundary", "absorbing", "--no-wigner"])
+            torch.cuda.synchronize()
+            se_wall = time.perf_counter() - t0
+            averages = np.loadtxt(f"{tmp}/se/averages.txt", ndmin=2)
+            psi_rows = np.loadtxt(f"{tmp}/se/psi.txt", ndmin=2).shape
+    finally:
+        for u in undo:
+            u()
+    if rc != 0:
+        raise AssertionError(f"oracles: se exited with {rc}")
+    init_s, solver = calls["__init__"][0][0], calls["__init__"][0][1]
+    strang_s = sum(c[0] for c in calls["_strang_steps"])
+    strang_steps = sum(c[2][1] for c in calls["_strang_steps"])
+    res = calls["run"][0][3]
+    norm, energy = averages[:, 4] + averages[:, 5], averages[:, 1]
+    se = dict(n=solver.cfg.n_grids, h_dim=2 * solver.cfg.n_grids, dt=solver.cfg.dt,
+              wall_s=se_wall, h_eigh_s=init_s, strang_steps=strang_steps,
+              strang_us_per_step=strang_s / strang_steps * 1e6, outputs=len(res.times),
+              final_x=float(res.averages[-1, 1]), final_populations=res.populations[-1].tolist(),
+              max_norm_dev=float(np.max(np.abs(norm - 1.0))),
+              max_energy_rel_dev=float(np.max(np.abs(energy / energy[0] - 1.0))),
+              psi_txt_shape=list(psi_rows))
+    log("oracles: se at the production input: " + json.dumps(se))
+    if se["max_norm_dev"] > TOL_CONSERVED or se["max_energy_rel_dev"] > TOL_CONSERVED:
+        raise AssertionError(f"oracles: se does not conserve norm or energy: {se}")
+    if not (se["final_x"] > 0.0 and averages.shape[0] == len(res.times)):
+        raise AssertionError(f"oracles: se did not reach a stop condition past x = 0: {se}")
+
+    # the Wigner frames of phase 14's snapshots at n = 1295, the tilted one
+    # timed and held against the same transform on the CPU
+    c = solver.cfg
+    shots = {}
+    for i in SHOT_FRAMES:
+        psi = torch.tensor(res.psis[i], device="cuda")
+        frame = S.wigner_transform(psi, c.x_grid, c.p_grid, c.dx, c.boundary)
+        shots[i] = frame[0, 0].real.cpu().numpy()
+    wigner_ms = KB.device_ms(lambda: S.wigner_transform(psi, c.x_grid, c.p_grid, c.dx,
+                                                        c.boundary), launches=5, min_ms=0,
+                             repeats=3)
+    t0 = time.perf_counter()
+    cpu_frame = S.wigner_transform(psi.cpu(), c.x_grid, c.p_grid, c.dx, c.boundary)
+    wigner_cpu_s = time.perf_counter() - t0
+    frame_h = frame.cpu().numpy()
+    wig = dict(n=c.n_grids, time=float(res.times[SHOT_FRAMES[-1]]), ms=wigner_ms,
+               cpu_s=wigner_cpu_s,
+               gflop=8.0 * 4 * c.n_grids * (2 * c.n_grids - 1) * c.n_grids / 1e9,
+               rel_err_vs_cpu=_rel(frame_h, cpu_frame.numpy()),
+               hermitian_dev=_rel(frame_h[0, 1], np.conj(frame_h[1, 0])))
+    log("oracles: one Wigner frame: " + json.dumps(wig))
+    if not (wig["rel_err_vs_cpu"] <= TOL_WIGNER_CPU and wig["hermitian_dev"] <= 1e-12):
+        raise AssertionError(f"oracles: Wigner frame {wig}")
+    del solver, calls, psi, frame
+
+    # the Liouville oracle at the production input
+    lcfg = L.LiouvilleConfig(model=MODEL, mass=cfg.mass, x0=cfg.x0, p0=cfg.p0,
+                             sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax, dx_input=1.0,
+                             output_time=cfg.output_time, dt_input=cfg.dt)
+    lcalls = {}
+    undo = _timed(L.LiouvilleSolver, "_step", lcalls)
+    try:
+        t0 = time.perf_counter()
+        lres = L.LiouvilleSolver(lcfg, "cuda").run(store_rho=False, max_outputs=LE_OUTPUTS)
+        torch.cuda.synchronize()
+        le_wall = time.perf_counter() - t0
+    finally:
+        undo()
+    rho = lcalls["_step"][-1][3]
+    steps = sum(call[2][1] for call in lcalls["_step"])
+    le = dict(n=lcfg.n_grids, dt=lcfg.dt, outputs=len(lres.times), steps=steps, wall_s=le_wall,
+              us_per_step=sum(call[0] for call in lcalls["_step"]) / steps * 1e6,
+              max_norm_dev=float(np.max(np.abs(lres.populations.sum(axis=1) - 1.0))),
+              hermitian_dev=float((rho - rho.transpose(-1, -2).conj()).abs().max()),
+              final_populations=lres.populations[-1].tolist())
+    # where a Trotter step's time goes (a step is 2 quantum, 2 position and
+    # 1 momentum substeps): each substep and its parts back to back on the
+    # step's last rho, ms a call by CUDA events
+    ls, dt = L.LiouvilleSolver(lcfg, "cuda"), lcfg.dt
+    parts = {"quantum": lambda: ls.quantum_liouville(rho, dt / 2.0),
+             "position": lambda: ls.classical_position(rho, dt / 2.0),
+             "momentum": lambda: ls.classical_momentum(rho, dt),
+             "fft_x": lambda: torch.fft.fft(rho, dim=0),
+             "fft_p": lambda: torch.fft.fft(rho, dim=1),
+             "hermitize": lambda: L._hermitize(rho),
+             "basis_change": lambda: ls.to_adiabatic(rho)}
+    le["part_ms"] = {k: KB.device_ms(f, launches=20, min_ms=0, repeats=3)
+                     for k, f in parts.items()}
+    log("oracles: le at the production input: " + json.dumps(le))
+    if le["outputs"] != LE_OUTPUTS or le["max_norm_dev"] > TOL_CONSERVED or \
+            le["hermitian_dev"] > 1e-12:
+        raise AssertionError(f"oracles: le {le}")
+    del rho, lcalls, ls
+
+    # both oracles on the validation physics: the card's runs against each
+    # other, and against the CPU's (the DVR run whole; the Liouville rho after
+    # its first LE_CPU_STEPS Trotter steps, with its populations and
+    # averages).  The CPU on one intra-op thread: thousands of small tensor
+    # ops run faster so.
+    runs, threads = {}, torch.get_num_threads()
+    try:
+        for dev in ("cuda", "cpu"):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            t0 = time.perf_counter()
+            dvr = S.DVRSolver(S.DVRConfig(boundary="reflective", **VALIDATION_PHYSICS),
+                              dev).run(store_wigner=True, max_outputs=3)
+            t1 = time.perf_counter()
+            ls = L.LiouvilleSolver(L.LiouvilleConfig(**VALIDATION_PHYSICS), dev)
+            rho = ls.to_adiabatic(ls._step(ls.to_diabatic(ls.initial_density()), LE_CPU_STEPS))
+            seen = (rho.cpu().numpy(), ls.populations(rho).cpu().numpy(),
+                    torch.stack(ls.averages(rho)).cpu().numpy())
+            t2 = time.perf_counter()
+            liou = ls.run(store_rho=False, max_outputs=2) if dev == "cuda" else None
+            runs[dev] = (dvr, seen, liou, t1 - t0, t2 - t1, time.perf_counter() - t2)
+    finally:
+        torch.set_num_threads(threads)
+    (dg, sg, lg, *cuda_s), (dc, sc, _, *cpu_s) = runs["cuda"], runs["cpu"]
+    n = min(len(dg.times), len(lg.times))
+    agree = dict(dvr_n=dg.cfg.n_grids, le_n=lg.cfg.n_grids, le_cpu_steps=LE_CPU_STEPS,
+                 le_run_steps=int(lg.times[-1] / lg.cfg.dt), cuda_s=cuda_s, cpu_s=cpu_s[:2],
+                 rel_err={"dvr_psis": _rel(dg.psis, dc.psis),
+                          "dvr_populations": _rel(dg.populations, dc.populations),
+                          "dvr_averages": _rel(dg.averages, dc.averages),
+                          "dvr_wigners": _rel(dg.wigners, dc.wigners),
+                          "le_rho": _rel(sg[0], sc[0]),
+                          "le_populations": _rel(sg[1], sc[1]),
+                          "le_averages": _rel(sg[2], sc[2])},
+                 dvr_vs_le=float(np.max(np.abs(dg.populations[:n] - lg.populations[:n]))))
+    log("oracles: validation physics, card against CPU: " + json.dumps(agree))
+    bad = {k: v for k, v in agree["rel_err"].items() if not v <= TOL_ORACLE_AGREE}
+    if bad or not agree["dvr_vs_le"] < TOL_ORACLE_CROSS:
+        raise AssertionError(f"oracles: card and CPU disagree: {bad or agree['dvr_vs_le']}")
+    return dict(se=se, wigner=wig, le=le, agree=agree), res, shots, dg
+
+
+def _grid_coords(x_grid, p_grid):
+    gx, gp = np.meshgrid(x_grid, p_grid, indexing="ij")
+    return np.stack([gx.ravel(), gp.ravel()], axis=-1)
+
+
+def validation_phase(se_res, shots, val_dvr):
+    """Phase 14: the validation harness on the card, held to its tests'
+    bounds.  The keys are host keys (``RandomKeys(seed, "cpu")``): the
+    selections are those the CPU tests draw from the same seeds."""
+    from gple_tpu_torch import validation as V
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    cfg = se_res.cfg
+    coords = _grid_coords(cfg.x_grid, cfg.p_grid)
+    da = cfg.dx * (cfg.p_grid[1] - cfg.p_grid[0])
+    vc = val_dvr.cfg
+    frames = val_dvr.wigners[:, [0, 1], [0, 1]].real
+    g = np.linspace(-6.0, 6.0, 61)
+    tilted_coords = _grid_coords(g, g)
+    c, s = np.cos(0.6), np.sin(0.6)
+    tilted = 0.3 * np.exp(-0.5 * (((c * tilted_coords[:, 0] + s * tilted_coords[:, 1]) / 0.8)
+                                  ** 2 + ((-s * tilted_coords[:, 0] + c * tilted_coords[:, 1])
+                                          / 1.6) ** 2))
+    torch.cuda.synchronize()
+    GK.reset_launches()
+    walls, fits = {}, {}
+    for i in SHOT_FRAMES:
+        for name, full in (("axis", False), ("full_ard", True)):
+            t0 = time.perf_counter()
+            fits[i, name] = V.screenshot_fit(RandomKeys(0, "cpu"), coords, shots[i].ravel(), da,
+                                             full_ard=full, device="cuda")
+            torch.cuda.synchronize()
+            walls[f"screenshot_t{se_res.times[i]:g}_{name}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evolve = V.evolve_fit(RandomKeys(1, "cpu"), val_dvr.times, frames, vc.x_grid, vc.p_grid,
+                          MODEL, vc.mass, n_points=EVOLVE_POINTS, device="cuda")
+    torch.cuda.synchronize()
+    walls["evolve_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tilt = {full: V.screenshot_fit(RandomKeys(7, "cpu"), tilted_coords, tilted,
+                                   (g[1] - g[0]) ** 2, n_points=160, full_ard=full,
+                                   device="cuda") for full in (False, True)}
+    torch.cuda.synchronize()
+    walls["tilted_pair_s"] = time.perf_counter() - t0
+    launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+
+    snaps = {f"t{se_res.times[i]:g}_{name}": dict(
+        mse=f.mse, rel_rmse=float(np.sqrt(f.mse) / np.abs(shots[i]).max()), nll=f.nll,
+        population_grid=f.population_grid, population_prm=f.population_prm,
+        lengths=f.state.params.lengths.cpu().numpy().tolist())
+        for (i, name), f in fits.items()}
+    result = dict(grid_points=coords.shape[0], walls=walls, screenshots=snaps,
+                  evolve=[dict(time=fr.time, mse=fr.mse,
+                               population_grid=fr.population_grid.tolist(),
+                               population_prm=fr.population_prm.tolist(),
+                               population_rescaled=fr.population_rescaled.tolist())
+                          for fr in evolve],
+                  tilted=dict(axis_mse=tilt[False].mse, full_mse=tilt[True].mse,
+                              w10=float(tilt[True].state.params.lengths[1, 0])),
+                  launches=launches)
+    log("validation: " + json.dumps(result))
+
+    def within(shot):
+        return (shot["rel_rmse"] < VAL_REL_RMSE
+                and abs(shot["population_prm"] / shot["population_grid"] - 1.0) < VAL_POP_REL)
+
+    # every fit within the bounds, except the axis-aligned fit of the tilted
+    # production frame, which is recorded (its population is what the full
+    # ARD repairs) and must lose to the full-ARD fit
+    t_tilt = f"t{se_res.times[SHOT_FRAMES[-1]]:g}"
+    for name, shot in snaps.items():
+        if name != f"{t_tilt}_axis" and not within(shot):
+            raise AssertionError(f"validation: screenshot {name} {shot}")
+    for axis, full in ((snaps[f"{t_tilt}_axis"]["mse"], snaps[f"{t_tilt}_full_ard"]["mse"]),
+                       (result["tilted"]["axis_mse"], result["tilted"]["full_mse"])):
+        if not full < FULL_ARD_GAIN * axis:
+            raise AssertionError(f"validation: full ARD does not beat the axis-aligned fit: "
+                                 f"{full} against {axis}")
+    if not abs(result["tilted"]["w10"]) > 1e-3:
+        raise AssertionError(f"validation: the full-ARD fit left its cross term: {result}")
+    for fr in evolve:
+        tol = np.maximum(0.02, 0.15 * fr.population_grid)
+        if not (np.all(np.abs(fr.population_prm - fr.population_grid) < tol)
+                and abs(fr.population_rescaled.sum() - 1.0) < 1e-8 and fr.mse < 1e-5):
+            raise AssertionError(f"validation: evolve_fit frame {fr}")
+    _check_path_launches("validation", launches, FORWARD + ("rbf_gram_vjp_points",))
+    nll_agreement(coords, shots[SHOT_FRAMES[-1]].ravel())
+    return launches, by_shape, result
+
+
+def nll_agreement(coords, vals):
+    """One NLL loss and its gradient at N = 200, vector and full-ARD, on the
+    card against the CPU."""
+    from gple_tpu_torch import validation as V
+    from gple_tpu_torch.ops import kernels as RK
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    feats, labels = V.grid_weighted_selection(RandomKeys(3, "cpu"), coords, vals, 200)
+    std = feats.std(axis=0)
+    errs = {}
+    for name, theta in (("vector", 0.5 * std), ("full_ard", np.r_[0.5 * std, 0.3])):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            th = torch.tensor(theta, device=dev, requires_grad=True)
+            lengths = th
+            if name == "full_ard":
+                cross = torch.zeros((2, 2), dtype=th.dtype, device=dev)
+                cross[1, 0] = 1.0
+                lengths = torch.diag_embed(1.0 / th[:2]) + th[2] * cross
+            one = torch.ones((), dtype=th.dtype, device=dev)
+            st = RK.fit_real(RK.KernelParams(one, lengths, one * V.FIT_NOISE),
+                             torch.tensor(feats, device=dev), torch.tensor(labels, device=dev))
+            loss = V.nll_loss(st)
+            (grad,) = torch.autograd.grad(loss, th)
+            outs[dev] = (loss.detach().cpu(), grad.cpu())
+        errs[name] = dict(loss=_rel(outs["cuda"][0], outs["cpu"][0]),
+                          grad=_rel(outs["cuda"][1], outs["cpu"][1]))
+    log(f"validation: NLL loss and gradient N=200, card against CPU (relative): "
+        + json.dumps(errs))
+    for name, e in errs.items():
+        if not max(e.values()) <= TOL_NLL_AGREE:
+            raise AssertionError(f"validation: NLL {name} disagrees: {e}")
 
 
 def kernel_summary(cases, paths, per):
     """One entry per kernel for the ``{"kernels": [...]}`` line.  ``launches``
     is the count of the kernel's main path: the trajectory phase for the
-    forward kernels, the ladder phase for the VJP kernels; its top-level
+    forward kernels, the ladder phase for the length VJP kernels, the
+    validation phase for the points cotangent; its top-level
     times are those of the shape where that path spends the most kernel time
     (launches x ms); every shape is in ``cases`` with its launches in each
     path and, for the trajectory, per tick, per reopt and per output."""
@@ -700,6 +1088,10 @@ def kernel_summary(cases, paths, per):
         "rbf_predict_vjp": ("gple_tpu_torch/csrc/rbf_vjp.cu",
                             "gple_tpu/gp/opt.py:297 (no Pallas kernel: XLA's autodiff of "
                             "gple_tpu/ops/kernels.py:gram inside jax.grad)", "ladder"),
+        "rbf_gram_vjp_points": ("gple_tpu_torch/csrc/rbf_vjp.cu",
+                                "gple_tpu/validation.py:98-104 (no Pallas kernel: XLA's "
+                                "autodiff of gple_tpu/ops/kernels.py:gram with respect to the "
+                                "points inside jax.grad)", "validation"),
     }
     kernels = []
     for name, (source, replaces, main_path) in sources.items():
@@ -725,6 +1117,11 @@ def kernel_summary(cases, paths, per):
                                       "max_abs_err")}
                    for c in mine]))
     return kernels
+
+
+def _keys(cases) -> set:
+    """The ``LAUNCHES_BY_SHAPE`` keys of checked cases."""
+    return {(c["key"][0], tuple(c["key"][1])) for c in cases}
 
 
 def main() -> int:
@@ -755,18 +1152,23 @@ def main() -> int:
     slice_by_shape = dict(GK.LAUNCHES_BY_SHAPE)
     traj_launches, traj_by_shape, per, _ = trajectory_phase()
     cross_launches, cross_by_shape, _ = crossing_phase()
-    cases += trajectory_kernel_phase(traj_by_shape, cross_by_shape)
+    cases += new_shapes_phase("trajectory / crossing", (), traj_by_shape, cross_by_shape)
     cases += vjp_phase()
     ladder_launches, ladder_by_shape, _ = ladder_phase()
     ladder_agreement_phase()
     rp_launches, rp_by_shape, resume_by_shape, _ = parity_phase()
-    cases += ladder_kernel_phase({(c["key"][0], tuple(c["key"][1])) for c in cases},
-                                 ladder_by_shape, rp_by_shape, resume_by_shape)
+    cases += new_shapes_phase("ladder / reference parity", _keys(cases), ladder_by_shape,
+                              rp_by_shape, resume_by_shape)
+    _, se_res, shots, val_dvr = oracles_phase()
+    val_launches, val_by_shape, _ = validation_phase(se_res, shots, val_dvr)
+    del se_res, shots, val_dvr
+    cases += new_shapes_phase("validation", _keys(cases), val_by_shape)
     paths = {"slice": (slice_launches, slice_by_shape),
              "trajectory": (traj_launches, traj_by_shape),
              "crossing": (cross_launches, cross_by_shape),
              "ladder": (ladder_launches, ladder_by_shape),
-             "reference_parity": (rp_launches, rp_by_shape)}
+             "reference_parity": (rp_launches, rp_by_shape),
+             "validation": (val_launches, val_by_shape)}
 
     print(json.dumps({"kernels": kernel_summary(cases, paths, per)}))
     print(smi)

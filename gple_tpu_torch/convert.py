@@ -2,11 +2,14 @@
 
 :func:`to_torch` turns a ``gple_tpu`` container -- ``Density``, ``GPStates``,
 ``KernelParams``, ``ComplexKernelParams``, ``RealTrainState`` or
-``ComplexTrainState``, with leaves given as numpy arrays or anything
-``numpy.asarray`` accepts -- into the port's container of the same name on a
-given device.  It walks the NamedTuples by field name and raises when the
-field names differ.  :func:`to_numpy` goes back: the port's containers with
-numpy leaves.  No JAX import is needed: containers are matched by class name.
+``ComplexTrainState`` (vector or full-ARD matrix lengths alike), with
+leaves given as numpy arrays or anything ``numpy.asarray`` accepts -- into
+the port's container of the same name on a given device.  It walks the
+NamedTuples by field name and raises when the field names differ.
+:func:`to_numpy` goes back: the port's containers with numpy leaves.  The
+oracles' configurations ``DVRConfig`` and ``LiouvilleConfig`` carry across
+either way field for field (they hold no arrays).  No JAX import is needed:
+containers are matched by class name.
 
 :func:`config_to_torch` maps a ``GPLEConfig`` field for field, and
 :func:`driver_to_torch` carries a ``gple_tpu`` driver's whole trajectory state
@@ -26,12 +29,14 @@ from gple_tpu_torch.driver import GPLEDriver
 from gple_tpu_torch.gp.opt import Optimizer, OptResult
 from gple_tpu_torch.ops.complex_kernels import ComplexKernelParams, ComplexTrainState
 from gple_tpu_torch.ops.kernels import KernelParams, RealTrainState
+from gple_tpu_torch.oracles import DVRConfig, LiouvilleConfig
 from gple_tpu_torch.sampler.mc import MCParameters
 from gple_tpu_torch.storage import Density, GPStates
 
 CONTAINERS = {cls.__name__: cls for cls in (
     Density, GPStates, KernelParams, ComplexKernelParams, RealTrainState,
     ComplexTrainState)}
+CONFIGS = {cls.__name__: cls for cls in (DVRConfig, LiouvilleConfig)}
 
 
 def _container(obj):
@@ -44,8 +49,24 @@ def _container(obj):
     return cls
 
 
+def _config(obj):
+    """The port's oracle configuration equal to ``obj`` (either package's),
+    or None when ``obj`` is not one."""
+    cls = CONFIGS.get(type(obj).__name__)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        return None
+    names = [f.name for f in dataclasses.fields(cls)]
+    if [f.name for f in dataclasses.fields(obj)] != names:
+        raise ValueError(f"{type(obj).__name__}: fields differ from the port's {names}")
+    return cls(**{name: getattr(obj, name) for name in names})
+
+
 def to_torch(obj, device):
-    """A ``gple_tpu`` container (or array) as the port's container on ``device``."""
+    """A ``gple_tpu`` container (or array, or oracle configuration) as the
+    port's on ``device``."""
+    config = _config(obj)
+    if config is not None:
+        return config
     cls = _container(obj)
     if cls is not None:
         return cls(*(to_torch(getattr(obj, f), device) for f in cls._fields))
@@ -53,7 +74,11 @@ def to_torch(obj, device):
 
 
 def to_numpy(obj):
-    """A port container (or tensor) with every leaf as a numpy array."""
+    """A port container (or tensor) with every leaf as a numpy array; an
+    oracle configuration as itself."""
+    config = _config(obj)
+    if config is not None:
+        return config
     cls = _container(obj)
     if cls is not None:
         return cls(*(to_numpy(getattr(obj, f)) for f in cls._fields))

@@ -12,7 +12,9 @@ replaces the draw (the tests pass the JAX package's points).
 
 :func:`trajectory_config` is the production trajectory of the same workload
 for :class:`gple_tpu_torch.driver.GPLEDriver`, and :func:`crossing_config`
-the crossing-region regression trajectory of ``tests/test_crossing.py``.
+the crossing-region regression trajectory of ``tests/test_crossing.py``;
+:func:`crossing_dvr_config` is the exact DVR oracle's configuration of the
+same physics, whose populations the crossing trajectory is held against.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
+from gple_tpu_torch.oracles.schrodinger import DVRConfig
 from gple_tpu_torch.sampler import mc
 from gple_tpu_torch.storage import Density, fit_gp_states
 
@@ -99,3 +102,13 @@ def crossing_config() -> GPLEConfig:
     through the avoided crossing and transfers population."""
     return GPLEConfig(model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0,
                       output_time=10.0, reopt_time=20.0, dt=1.0, num_points=64)
+
+
+def crossing_dvr_config() -> DVRConfig:
+    """The DVR oracle on :func:`crossing_config`'s physics (reflective walls on
+    its interaction region, outputs at its output times), as
+    ``tests/test_crossing.py`` builds it."""
+    cfg = crossing_config()
+    return DVRConfig(model=cfg.model, boundary="reflective", mass=cfg.mass, x0=cfg.x0,
+                     p0=cfg.p0, sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax,
+                     dx_input=1.0, output_time=cfg.output_time, dt_input=cfg.dt)

@@ -10,15 +10,20 @@ a dispatching entry point:
 * :func:`predict_mean_rbf` -- ``gram @ alpha`` without materialising the
   cross-kernel (replaces ``predict_mean_pallas``).
 
-Both entry points are differentiable in the lengths (and the predict in
-``alpha``) through the autograd Functions :class:`RBFGram` and
-:class:`RBFPredictMean`.  Their backward is two more hand-written kernels
-(``csrc/rbf_vjp.cu``), each beside its plain version: ``rbf_gram_vjp`` (the
-length cotangent of a Gram from its dense cotangent) and ``rbf_predict_vjp``
-(the length cotangent of a predict mean, whose weight ``g alpha^T`` has rank
-C); the ``alpha`` cotangent of a predict is ``rbf_predict_mean`` with the test
-and training points swapped.  A gradient with respect to the points raises
-(the full-ARD matrix lengths of validation need it, ROADMAP Queue A item 12).
+Both entry points are differentiable in the lengths (the predict also in
+``alpha``, the Gram also in both point sets) through the autograd Functions
+:class:`RBFGram` and :class:`RBFPredictMean`.  Their backward is three more
+hand-written kernels (``csrc/rbf_vjp.cu``), each beside its plain version:
+``rbf_gram_vjp`` (the length cotangent of a Gram from its dense cotangent),
+``rbf_predict_vjp`` (the length cotangent of a predict mean, whose weight
+``g alpha^T`` has rank C) and ``rbf_gram_vjp_points`` (a Gram's cotangent
+with respect to one point set; the other set's is the same kernel with the
+points swapped and the cotangent read transposed through its strides).  The
+full-ARD matrix lengths of validation reach the Gram as transformed points
+``z = W x`` with unit lengths, so their gradient runs through the last one.
+The ``alpha`` cotangent of a predict is ``rbf_predict_mean`` with the test
+and training points swapped.  A predict's gradient with respect to its points
+raises: nothing differentiates it.
 
 Dispatch is by the device of the tensors alone, forward and backward: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel (or the
@@ -43,10 +48,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"rbf_gram": 0, "rbf_predict_mean": 0, "rbf_gram_vjp": 0, "rbf_predict_vjp": 0}
-#: the same launches by (kernel name, shape): ``rbf_gram`` and ``rbf_gram_vjp``
-#: shapes are (B, Na, Nb, D, dtype), ``rbf_predict_mean`` and
-#: ``rbf_predict_vjp`` shapes (B, M, N, C, D, dtype)
+LAUNCHES = {"rbf_gram": 0, "rbf_predict_mean": 0, "rbf_gram_vjp": 0, "rbf_predict_vjp": 0,
+            "rbf_gram_vjp_points": 0}
+#: the same launches by (kernel name, shape): ``rbf_gram``, ``rbf_gram_vjp``
+#: and ``rbf_gram_vjp_points`` shapes are (B, Na, Nb, D, dtype),
+#: ``rbf_predict_mean`` and ``rbf_predict_vjp`` shapes (B, M, N, C, D, dtype)
 LAUNCHES_BY_SHAPE: dict = {}
 
 #: phase-space dimensions the kernels are instantiated for
@@ -63,6 +69,8 @@ PREDICT_MAX_CHUNK = 1024
 #: in csrc/rbf_vjp.cu)
 VJP_COLS_PER_BLOCK = 128
 VJP_ROWS_PER_BLOCK = 32
+#: rows (one warp each) of one block of the points cotangent (``kPointRows``)
+POINTS_VJP_ROWS_PER_BLOCK = 8
 _MAX_GRID_X = 2**31 - 1
 _MAX_GRID_YZ = 65535
 _MAX_INT = 2**31 - 1
@@ -90,10 +98,14 @@ def _count_launch(name: str, shape: tuple) -> None:
 # -- plain PyTorch versions (the CPU path and the on-card reference) -------------
 
 def gram_plain(lengths, xa, xb):
-    """Broadcast-difference RBF Gram, the formula of ``gple_tpu.ops.kernels.gram``."""
+    """Broadcast-difference RBF Gram, the formula of ``gple_tpu.ops.kernels.gram``;
+    the squared distance is summed one dimension at a time (no (Na, Nb, D)
+    intermediate, and no reduction over a short last axis)."""
     za = xa / lengths[..., None, :]
     zb = xb / lengths[..., None, :]
-    d2 = torch.sum((za[..., :, None, :] - zb[..., None, :, :]) ** 2, dim=-1)
+    d2 = 0.0
+    for d in range(za.shape[-1]):
+        d2 = d2 + (za[..., :, None, d] - zb[..., None, :, d]) ** 2
     return torch.exp(-0.5 * d2)
 
 
@@ -118,6 +130,17 @@ def predict_vjp_plain(lengths, x_test, x_train, alpha, g):
     output's cotangent ``g (..., M, C)``: :func:`gram_vjp_plain` with the
     rank-C weight ``g alpha^T``."""
     return gram_vjp_plain(lengths, x_test, x_train, g @ alpha.transpose(-1, -2))
+
+
+def gram_vjp_points_plain(lengths, xa, xb, gout):
+    """The cotangent ``(..., Na, D)`` of :func:`gram_plain` with respect to
+    ``xa`` for the Gram's cotangent ``gout (..., Na, Nb)``:
+    ``sum_j gout_ij k_ij (zb_jd - za_id) / l_d``."""
+    za = xa / lengths[..., None, :]
+    zb = xb / lengths[..., None, :]
+    diff = zb[..., None, :, :] - za[..., :, None, :]
+    k = torch.exp(-0.5 * torch.sum(diff**2, dim=-1))
+    return torch.sum((gout * k)[..., None] * diff, dim=-2) / lengths[..., None, :]
 
 
 # -- CUDA launchers ----------------------------------------------------------------
@@ -334,19 +357,46 @@ def predict_vjp_cuda(lengths, x_test, x_train, alpha, g):
     return out
 
 
+def gram_vjp_points_cuda(lengths, xa, xb, gout):
+    """Launch ``rbf_gram_vjp_points`` on (B, D), (B, Na, D), (B, Nb, D) CUDA
+    tensors and the Gram's cotangent (B, Na, Nb), read through its strides (a
+    transposed view is read in place); returns a new contiguous (B, Na, D)
+    cotangent of ``xa``."""
+    _check_cuda("rbf_gram_vjp_points", lengths, xa, xb, gout)
+    batch, na, d = xa.shape
+    nb = xb.shape[1]
+    if (xb.shape != (batch, nb, d) or lengths.shape != (batch, d)
+            or gout.shape != (batch, na, nb)):
+        raise ValueError(f"rbf_gram_vjp_points: shapes {tuple(lengths.shape)}, "
+                         f"{tuple(xa.shape)}, {tuple(xb.shape)}, {tuple(gout.shape)} do not "
+                         "form (B, D), (B, Na, D), (B, Nb, D), (B, Na, Nb)")
+    if (not 1 <= d <= MAX_DIM or batch > _MAX_GRID_YZ
+            or max(na, nb) > _MAX_INT - POINTS_VJP_ROWS_PER_BLOCK):
+        raise ValueError(f"rbf_gram_vjp_points: D={d}, B={batch}, Na={na}, Nb={nb} outside "
+                         "the kernel's range")
+    fn = _launcher("rbf_gram_vjp_points", xa.dtype)
+    dev = xa.device
+    with torch.cuda.device(dev):
+        if batch * na * nb == 0:
+            return torch.zeros((batch, na, d), dtype=xa.dtype, device=dev)
+        out = torch.empty((batch, na, d), dtype=xa.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(xa.data_ptr(), xb.data_ptr(), lengths.data_ptr(), gout.data_ptr(),
+                 out.data_ptr(), batch, na, nb, d, *xa.stride(), *xb.stride(),
+                 *lengths.stride(), *gout.stride(), stream)
+    _raise_on("rbf_gram_vjp_points", err)
+    _count_launch("rbf_gram_vjp_points", (batch, na, nb, d, str(xa.dtype)[6:]))
+    return out
+
+
 # -- autograd Functions ------------------------------------------------------------------
-
-def _refuse_points_grad(name: str, needs_input_grad, points: tuple):
-    if any(needs_input_grad[i] for i in points):
-        raise NotImplementedError(
-            f"{name}: the gradient with respect to the points is not implemented (the "
-            "full-ARD matrix lengths of validation need it, ROADMAP Queue A item 12)")
-
 
 class RBFGram(torch.autograd.Function):
     """:func:`gram_rbf` on flat operands (B, D), (B, Na, D), (B, Nb, D),
-    differentiable in the lengths: the backward is ``rbf_gram_vjp`` on the
-    card and :func:`gram_vjp_plain` on the CPU."""
+    differentiable in the lengths and in both point sets: the backward is
+    ``rbf_gram_vjp`` (lengths) and ``rbf_gram_vjp_points`` (each point set)
+    on the card, :func:`gram_vjp_plain` and :func:`gram_vjp_points_plain` on
+    the CPU."""
 
     @staticmethod
     def forward(ctx, lengths, xa, xb):
@@ -358,12 +408,17 @@ class RBFGram(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        _refuse_points_grad("RBFGram", ctx.needs_input_grad, (1, 2))
-        if not ctx.needs_input_grad[0]:
-            return None, None, None
         lengths, xa, xb = ctx.saved_tensors
-        vjp = gram_vjp_cuda if _route("rbf_gram_vjp", xa) else gram_vjp_plain
-        return vjp(lengths, xa, xb, gout), None, None
+        cuda = _route("rbf_gram_vjp", xa)
+        d_len = d_xa = d_xb = None
+        if ctx.needs_input_grad[0]:
+            d_len = (gram_vjp_cuda if cuda else gram_vjp_plain)(lengths, xa, xb, gout)
+        points = gram_vjp_points_cuda if cuda else gram_vjp_points_plain
+        if ctx.needs_input_grad[1]:
+            d_xa = points(lengths, xa, xb, gout)
+        if ctx.needs_input_grad[2]:
+            d_xb = points(lengths, xb, xa, gout.transpose(-1, -2))
+        return d_len, d_xa, d_xb
 
 
 class RBFPredictMean(torch.autograd.Function):
@@ -383,7 +438,10 @@ class RBFPredictMean(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        _refuse_points_grad("RBFPredictMean", ctx.needs_input_grad, (1, 2))
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise NotImplementedError(
+                "RBFPredictMean: the gradient with respect to the points is not "
+                "implemented (nothing differentiates a predict through its points)")
         lengths, x_test, x_train, alpha = ctx.saved_tensors
         cuda = _route("rbf_predict_vjp", x_test)
         d_len = d_alpha = None

@@ -11,7 +11,10 @@ do that).  The methods:
 * ``split_stack(n)`` -- one key whose batch shape gains a trailing axis of
   ``n``: the array ``jax.random.split(key, n)`` that JAX scans or vmaps over;
 * ``uniform(shape, low, high)`` and ``normal(shape)`` -- float64 draws of
-  shape ``batch + shape``; ``low`` and ``high`` broadcast against the batch.
+  shape ``batch + shape``; ``low`` and ``high`` broadcast against the batch;
+* ``randint(low, high)`` -- one Python int in ``[low, high)`` from an
+  unbatched key (``jax.random.randint(key, (), low, high)``; validation seeds
+  numpy's selection with it).
 
 A key is an integer seed (63 bits where a split derives it; a checkpoint may
 carry any seed below 2^64, see :mod:`gple_tpu_torch.io.checkpoint`).  A split hashes the parent's seed with the child's
@@ -58,6 +61,12 @@ class RandomKeys:
     def normal(self, shape):
         return torch.randn(self.batch + tuple(shape), generator=self._generator(),
                            dtype=torch.float64, device=self.device)
+
+    def randint(self, low: int, high: int) -> int:
+        if self.batch:
+            raise ValueError(f"randint draws one number; this key has batch {self.batch}")
+        return int(torch.randint(low, high, (), generator=self._generator(),
+                                 device=self.device).item())
 
 
 def _batched(value, n_trailing: int, device):

@@ -231,7 +231,7 @@ def test_launches_are_counted_by_kernel_and_shape(stand_in_launch):
     GK.gram_cuda(l, x, x[:, :8])
     GK.predict_mean_cuda(l, x, x[:, :8], torch.zeros(3, 8, 2, dtype=torch.float64))
     assert GK.LAUNCHES == {"rbf_gram": 2, "rbf_predict_mean": 1, "rbf_gram_vjp": 0,
-                           "rbf_predict_vjp": 0}
+                           "rbf_predict_vjp": 0, "rbf_gram_vjp_points": 0}
     assert GK.LAUNCHES_BY_SHAPE == {("rbf_gram", (3, 40, 8, 2, "float64")): 2,
                                     ("rbf_predict_mean", (3, 40, 8, 2, 2, "float64")): 1}
     GK.reset_launches()
@@ -268,7 +268,8 @@ def test_import_pulls_in_neither_jax_nor_gple_tpu():
         "gple_tpu_torch.driver, gple_tpu_torch.parallel.sharding, "
         "gple_tpu_torch.ops._build, gple_tpu_torch.ops.kernel_bench, gple_tpu_torch.cli, "
         "gple_tpu_torch.config, gple_tpu_torch.observables, gple_tpu_torch.sampler.mc, "
-        "gple_tpu_torch.sampler.keys, gple_tpu_torch.gp.opt, gple_tpu_torch.io.writers\n"
+        "gple_tpu_torch.sampler.keys, gple_tpu_torch.gp.opt, gple_tpu_torch.io.writers, "
+        "gple_tpu_torch.oracles, gple_tpu_torch.validation, gple_tpu_torch.io.input_gen\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'gple_tpu' or m.startswith('gple_tpu.')]\n"
         "assert not bad, bad\n"

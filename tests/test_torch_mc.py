@@ -70,6 +70,9 @@ class JaxKeys:
         out = jax.vmap(lambda k: jax.random.normal(k, shape, jnp.float64))(self._flat())
         return torch.from_numpy(np.array(out).reshape(self.batch + shape))
 
+    def randint(self, low, high):
+        return int(jax.random.randint(self.key, (), low, high))
+
 
 def jax_init_params():
     return tuple(jnp.asarray(v, dtype=jnp.float64) for v in (R0, SIGMA, POPS, PHASES))

@@ -6,15 +6,18 @@
   relative to each array's largest value; ``_reopt_epilogue`` with draws
   replayed from JAX keys 1e-8 (points 1e-12) -- each against ``gple_tpu.driver``
   on the same states.
-* ``python -m gple_tpu_torch.cli gple --device cpu`` end to end at N = 16,
-  and the refusals of what is not ported.
+* ``python -m gple_tpu_torch.cli gple --device cpu`` end to end at N = 16;
+  ``se`` and ``le --device cpu`` at a small input against ``gple_tpu.cli``
+  on the same input: the same files, the grids and times byte for byte, the
+  values 1e-9 relative to each file's largest.
 * The committed DVR table ``gple_tpu_torch/data/sac_crossing_dvr.json``
-  regenerated by ``gple_tpu``'s ``DVRSolver`` (1e-10).  To rewrite it:
-  ``PYTHONPATH=. python tests/test_torch_trajectory.py``.
+  regenerated by ``gple_tpu``'s ``DVRSolver`` and by the port's (1e-10).  To
+  rewrite it: ``PYTHONPATH=. python tests/test_torch_trajectory.py``.
 * Crossing gate (marked ``slow``): the port on the CPU through
   ``tests/test_crossing.py``'s config and assertions.
 """
 
+import filecmp
 import json
 import os
 import sys
@@ -29,7 +32,8 @@ from gple_tpu import driver as JD
 from gple_tpu.storage import Density as JDensity
 from gple_tpu_torch import cli, convert
 from gple_tpu_torch import driver as TD
-from gple_tpu_torch.entry import crossing_config, trajectory_config
+from gple_tpu_torch.entry import crossing_config, crossing_dvr_config, trajectory_config
+from gple_tpu_torch.oracles import DVRSolver
 from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
 from test_torch_mc import JaxKeys
 from test_torch_observables import both_states, random_clouds
@@ -171,13 +175,40 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     assert len(last) == 3 and float(last[1]) == pytest.approx(1.0, abs=1e-3)
 
 
-@pytest.mark.parametrize("argv,item", [(["se"], "item 12"), (["le"], "item 12")])
-def test_cli_refuses_what_is_not_ported(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+ORACLE_INPUT = INPUT.replace("x0\n-10\np0\n30\nsigma p0\n1.5\n",
+                             "x0\n-2\np0\n20\nsigma p0\n1\n")
+
+
+@pytest.mark.parametrize("argv", [["se", "--boundary", "absorbing", "--no-wigner"], ["le"]],
+                         ids=["se", "le"])
+def test_cli_runs_the_oracles_on_the_cpu(argv, tmp_path, capsys, monkeypatch):
+    """SAC from x0 = -2 at p0 = 20, three outputs, through both CLIs."""
+    from gple_tpu import cli as jax_cli
+    from gple_tpu.utils import cache
+
+    (tmp_path / "input").write_text(ORACLE_INPUT)
+    args = [argv[0], "--input", str(tmp_path / "input"), "--model", "SAC",
+            "--max-outputs", "3", *argv[1:]]
+    assert cli._parser().parse_args(args).device == "cuda"       # the default
+    assert cli.main(args + ["--outdir", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    ours = capsys.readouterr().out.strip().splitlines()[-1].split()
+    monkeypatch.setattr(cache, "enable_persistent_cache", lambda *a, **k: None)
+    assert jax_cli.main(args + ["--outdir", str(tmp_path / "jax")]) == 0
+    theirs = capsys.readouterr().out.strip().splitlines()[-1].split()
+    assert ours[0] == theirs[0] == "20.0"
+    np.testing.assert_allclose(np.array(ours[1:], float), np.array(theirs[1:], float),
+                               rtol=0, atol=1e-9)            # populations sum to 1
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for name in names:
+        a, b = tmp_path / "port" / name, tmp_path / "jax" / name
+        if name in ("x.txt", "p.txt", "t.txt"):
+            assert filecmp.cmp(a, b, shallow=False), name
+        else:
+            ref = np.loadtxt(b)
+            np.testing.assert_allclose(np.loadtxt(a), ref, rtol=0,
+                                       atol=1e-9 * np.abs(ref).max(), err_msg=name)
+    assert np.loadtxt(tmp_path / "port" / "averages.txt").shape[0] == 3
 
 
 # -- DVR reference table and the crossing gate ---------------------------------------------
@@ -187,11 +218,7 @@ def dvr_table():
     (``tests/test_crossing.py:32-37``)."""
     from gple_tpu.oracles.schrodinger import DVRConfig, DVRSolver
 
-    cfg = crossing_config()
-    se_cfg = DVRConfig(model="SAC", boundary="reflective", mass=cfg.mass, x0=cfg.x0,
-                       p0=cfg.p0, sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax,
-                       dx_input=1.0, output_time=cfg.output_time, dt_input=cfg.dt)
-    se = DVRSolver(se_cfg).run(store_wigner=False)
+    se = DVRSolver(DVRConfig(**vars(crossing_dvr_config()))).run(store_wigner=False)
     return dict(
         source="gple_tpu.oracles.schrodinger.DVRSolver on the tests/test_crossing.py config "
                "(SAC, reflective, mass 2000, x0 -2, p0 20, sigma_p 1, x in [-4, 4], "
@@ -207,6 +234,15 @@ def test_dvr_table_matches_the_oracle():
     np.testing.assert_array_equal(stored["times"], fresh["times"])
     np.testing.assert_allclose(stored["populations"], fresh["populations"], rtol=0,
                                atol=1e-10)
+
+
+def test_port_dvr_reproduces_the_table():
+    """The crossing gate's reference from the port's own DVR oracle."""
+    with open(DVR_TABLE) as f:
+        stored = json.load(f)
+    ours = DVRSolver(crossing_dvr_config(), "cpu").run(store_wigner=False)
+    np.testing.assert_array_equal(ours.times, stored["times"])
+    np.testing.assert_allclose(ours.populations, stored["populations"], rtol=0, atol=1e-10)
 
 
 @pytest.mark.slow

@@ -4,12 +4,14 @@
 ``torch.autograd.gradcheck`` holds both Functions on the CPU route (float64,
 its default tolerances: atol 1e-5, rtol 1e-3 against central differences);
 each plain VJP is held against autograd of the plain forward to 1e-12
-relative to its largest entry; a gradient with respect to the points raises,
-and so does a tensor that requires grad at a raw launcher.  The gradient of
-a fit's loss through the entry points agrees with ``jax.grad`` of the JAX
-package's on the same inputs to 1e-9 relative.  The ``gpu`` tests hold the
-two CUDA VJP kernels against their plain versions (1e-10 relative to the
-largest |entry|) and check that a backward on the card launches them.
+relative to its largest entry; a predict's gradient with respect to its
+points raises, and so does a tensor that requires grad at a raw launcher.
+The gradient of a fit's loss through the entry points agrees with
+``jax.grad`` of the JAX package's on the same inputs to 1e-9 relative.  The
+``gpu`` tests hold the three CUDA backward kernels against their plain
+versions (1e-10 relative to the largest |entry|) and check that a backward
+on the card launches them.  (The Gram's points cotangent is tested against
+JAX in ``test_torch_full_ard.py``.)
 """
 
 import jax
@@ -88,24 +90,29 @@ def test_entry_points_reduce_broadcast_lengths(operands):
     assert l.grad.shape == (2,) and _rel(l.grad, ref.grad) <= TOL_VJP
 
 
-@pytest.mark.parametrize("which", ["gram", "predict"])
+@pytest.mark.parametrize("which", ["predict"])
 def test_points_gradient_raises(operands, which):
     l, xa, xb = t64(operands["lengths"], True), t64(operands["xa"], True), t64(operands["xb"])
-    out = (GK.gram_rbf(l, xa, xb) if which == "gram"
-           else GK.predict_mean_rbf(l, xa, xb, t64(operands["alpha"])))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    out = GK.predict_mean_rbf(l, xa, xb, t64(operands["alpha"]))
+    with pytest.raises(NotImplementedError, match="points"):
         out.sum().backward()
 
 
-def test_matrix_lengths_gradient_raises(operands):
-    """Full-ARD matrix lengths reach the kernel as transformed points."""
-    w = t64(np.diag([2.0, 0.5]), True)
+def test_matrix_lengths_gradient_reaches_the_points_cotangent(operands):
+    """Full-ARD matrix lengths reach the kernel as transformed points z = W x:
+    the gradient of W runs through ``RBFGram``'s points cotangent and equals
+    autograd of the plain formula."""
+    w = t64([[2.0, 0.0], [0.3, 0.5]], True)
     x = t64(operands["xa"][0])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        RK.gram(w, x, x).sum().backward()
+    RK.gram(w, x, x).square().sum().backward()
+    ref = t64([[2.0, 0.0], [0.3, 0.5]], True)
+    z = x @ ref.T
+    GK.gram_plain(torch.ones(2, dtype=torch.float64), z, z).square().sum().backward()
+    assert _rel(w.grad, ref.grad) <= TOL_VJP
 
 
-@pytest.mark.parametrize("launcher", ["gram", "predict", "gram_vjp", "predict_vjp"])
+@pytest.mark.parametrize("launcher", ["gram", "predict", "gram_vjp", "predict_vjp",
+                                      "gram_vjp_points"])
 def test_raw_launchers_refuse_tensors_that_require_grad(launcher):
     """The check comes before the device check: it holds for any tensor."""
     l = torch.ones(1, 2, dtype=torch.float64, requires_grad=True)
@@ -114,7 +121,9 @@ def test_raw_launchers_refuse_tensors_that_require_grad(launcher):
     calls = {"gram": lambda: GK.gram_cuda(l, x, x),
              "predict": lambda: GK.predict_mean_cuda(l, x, x, a),
              "gram_vjp": lambda: GK.gram_vjp_cuda(l, x, x, torch.zeros(1, 4, 4, dtype=torch.float64)),
-             "predict_vjp": lambda: GK.predict_vjp_cuda(l, x, x, a, a)}
+             "predict_vjp": lambda: GK.predict_vjp_cuda(l, x, x, a, a),
+             "gram_vjp_points": lambda: GK.gram_vjp_points_cuda(
+                 l, x, x, torch.zeros(1, 4, 4, dtype=torch.float64))}
     with pytest.raises(RuntimeError, match="requires grad"):
         calls[launcher]()
     with torch.no_grad(), pytest.raises(ValueError, match="expected CUDA"):
@@ -183,21 +192,55 @@ def test_backward_on_gpu_launches_the_vjp_kernels(cuda_device):
     l = torch.tensor(rng.uniform(0.5, 2.0, size=(2, 2)), device=dev, requires_grad=True)
     x = torch.tensor(cloud(rng, 2, 300), device=dev)
     alpha = torch.tensor(rng.normal(size=(2, 300, 1)), device=dev, requires_grad=True)
+    xg = x.clone().requires_grad_(True)
     GK.reset_launches()
     loss = (GK.predict_mean_rbf(l, x[:, :100], x, alpha).square().sum()
-            + GK.gram_rbf(l, x, x).square().sum())
+            + GK.gram_rbf(l, x, xg).square().sum())
     loss.backward()
     torch.cuda.synchronize()
     assert GK.LAUNCHES == {"rbf_gram": 1, "rbf_predict_mean": 2, "rbf_gram_vjp": 1,
-                           "rbf_predict_vjp": 1}
+                           "rbf_predict_vjp": 1, "rbf_gram_vjp_points": 1}
+    ref = x.clone().requires_grad_(True)
+    GK.gram_plain(l.detach(), x, ref).square().sum().backward()
+    assert _rel(xg.grad, ref.grad) <= 1e-10
+
+
+# (B, Na, Nb, D, xb broadcast, cotangent read transposed)
+POINTS_SHAPES = [(1, 200, 200, 2, False, False), (7, 200, 200, 2, True, True),
+                 (3, 301, 203, 4, True, True), (2, 33, 1, 3, False, False),
+                 (2, 9, 700, 1, True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,na,nb,d,bcast,trans", POINTS_SHAPES)
+def test_points_kernel_matches_plain_on_gpu(cuda_device, batch, na, nb, d, bcast, trans):
+    rng = np.random.default_rng(26)
+    dev, dt = cuda_device, torch.float64
+    l = torch.tensor(rng.uniform(0.5, 3.0, size=(batch, d)), dtype=dt, device=dev)
+    xa = torch.tensor(1.5 * rng.normal(size=(batch, na, d)), dtype=dt, device=dev)
+    xb = torch.tensor(1.5 * rng.normal(size=(1 if bcast else batch, nb, d)), dtype=dt,
+                      device=dev).expand(batch, nb, d)
+    g = (torch.tensor(rng.normal(size=(batch, nb, na)), dtype=dt, device=dev).transpose(1, 2)
+         if trans else torch.tensor(rng.normal(size=(batch, na, nb)), dtype=dt, device=dev))
+    out = GK.gram_vjp_points_cuda(l, xa, xb, g)
+    again = GK.gram_vjp_points_cuda(l, xa, xb, g)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert _rel(out, GK.gram_vjp_points_plain(l, xa, xb, g)) <= 1e-10
 
 
 # -- bounds and shapes of the VJP kernels (gple_tpu_torch.ops.kernel_bench) -------------
 
 def test_vjp_bounds_at_ladder_shapes():
     """Bytes bound the dense Gram cotangent (8 bytes against 24 FP64
-    instructions a pair), FP64 instructions the rank-C predict weight."""
+    instructions a pair), FP64 instructions the rank-C predict weight; the
+    points cotangent (3D + 17 a pair) is bound by its cotangent's bytes too."""
     from gple_tpu_torch.ops import kernel_bench as KB
+
+    assert KB.points_vjp_dp_per_pair(2) == 3 * 2 + 2 + KB.EXP_F64_DP_INSTR == 23
+    ms, by = KB.gram_vjp_points_bound(1, 200, 200, 2)
+    assert by == "bytes" and ms == pytest.approx((200 * 200 + 400 * 2 + 2 + 200 * 2) * 8
+                                                 / 3.35e9)
 
     assert KB.vjp_dp_per_pair(2) == 4 * 2 + 1 + KB.EXP_F64_DP_INSTR == 24
     assert KB.vjp_dp_per_pair(2, 2) == 26
@@ -215,6 +258,7 @@ def test_launched_vjp_shapes_become_cases():
 
     keys = {("rbf_gram_vjp", (7, 100, 50, 2, "float64")),
             ("rbf_predict_vjp", (2, 300, 40, 1, 2, "float64")),
+            ("rbf_gram_vjp_points", (1, 200, 200, 2, "float64")),
             KB.VJP_CASES[0].key, ("rbf_gram", (4, 8, 8, 2, "float64"))}
     grams, predicts, vjps = KB.cases_from_launches(keys, "test", known={("rbf_gram", (
         4, 8, 8, 2, "float64"))})
@@ -263,5 +307,12 @@ def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
     assert prefix == "rbf_predict_vjp" and args[7:12] == (3, 70, 40, 2, 2)
     assert args[12:26] == (*xa.stride(), 0, 2, 1, *l.stride(), *gp.stride(), *alpha.stride())
     assert GK.vjp_partials(70, 40) == 1 * 3
+    out = GK.gram_vjp_points_cuda(l, xa, xb, g)
+    prefix, args = calls[2]
+    assert prefix == "rbf_gram_vjp_points" and out.shape == (3, 70, 2)
+    assert args[5:9] == (3, 70, 40, 2)
+    assert args[9:20] == (*xa.stride(), 0, 2, 1, *l.stride(), *g.stride())
     assert GK.LAUNCHES["rbf_gram_vjp"] == GK.LAUNCHES["rbf_predict_vjp"] == 1
+    assert GK.LAUNCHES["rbf_gram_vjp_points"] == 1
+    assert GK.LAUNCHES_BY_SHAPE[("rbf_gram_vjp_points", (3, 70, 40, 2, "float64"))] == 1
     GK.reset_launches()
