@@ -35,14 +35,18 @@ Phases (any failure raises and the script exits non-zero):
    largest |entry|), two launches bit for bit, times beside the bound;
 10. ladder: ``Optimizer(opt_mode="ladder")`` on ``entry.example_state(1024)``
    (all three elements active, so the coherence's full pass runs) with
-   ``entry.example_extra(5120)``: the wall of each stage, the accepted stage,
-   the constraint checks; then one loss and gradient at N = 256 on the GPU
-   against the same on the CPU;
+   ``entry.example_extra(5120)`` and the default inner solver, the zoom line
+   search: the wall of each stage, its L-BFGS iterations, loss evaluations
+   and host pulls per iteration, the accepted stage, the constraint checks;
+   the first stage once more with the fixed fan for its wall; then one loss
+   and gradient at N = 256 on the GPU against the same on the CPU, and the
+   ladder's first zoom solve (the diagonal lengths) at N = 256 on the GPU
+   against the same solve on the CPU (the final iterate, 1e-8 relative);
 11. reference parity: ``GPLEDriver(replace(entry.trajectory_config(1024),
    reference_parity=True))`` for 20 ticks with a checkpoint every 10, and a
    second driver resumed from the tick-10 file to tick 20, whose populations
    must match the straight run's to 5e-3; the walls of the initialization
-   (with the ladder), the ticks, the reopts and the outputs;
+   (with the ladder, on the zoom), the ticks, the reopts and the outputs;
 12. kernels at the ladder's shapes: every (kernel, shape) that phases 10 and
    11 launched and no earlier phase checked, checked and timed as in phase 3;
 13. oracles at the production input (SAC, x0 = -10, p0 = 30, sigma_p = 1.5,
@@ -55,10 +59,12 @@ Phases (any failure raises and the script exits non-zero):
    physics (n = 385 / 97) on the card against the CPU (1e-9 relative; the
    DVR run whole, the Liouville rho after 400 Trotter steps) and against each
    other (populations within 0.05);
-14. validation: ``screenshot_fit`` axis-aligned and full-ARD on two frames
-   of the production DVR (1,677,025 grid points, 200 selected): the initial
-   packet, and the packet at <x> = -4 (t = 400), whose Wigner function free
-   flight has tilted; ``evolve_fit`` over every frame of phase 13's
+14. validation: ``screenshot_fit`` axis-aligned and full-ARD (the zoom line
+   search) on three frames of the production DVR (1,677,025 grid points, 200
+   selected): the initial packet, the packet at <x> = -4 (t = 400), whose
+   Wigner function free flight has tilted, and the run's last output after
+   the crossing (t = 980), whose fits must leave their starting lengths;
+   ``evolve_fit`` over every frame of phase 13's
    ``test_validation`` run, and the tilted snapshot of
    ``tests/test_full_ard.py``; held to those tests' bounds (the axis-aligned
    fit of the tilted production frame is recorded, and must lose to the
@@ -67,12 +73,26 @@ Phases (any failure raises and the script exits non-zero):
    CPU (1e-9 relative);
 15. kernels at the validation's shapes: every (kernel, shape) that phases 13
    and 14 launched and no earlier phase checked, checked and timed as in
-   phase 3 (``rbf_gram_vjp_points`` with its cotangent read both ways).
+   phase 3 (``rbf_gram_vjp_points`` with its cotangent read both ways);
+16. booster: ``GPLEDriver(entry.booster_config(1024))`` for 80 ticks -- the
+   crossing physics with 1024 extra points in the coherence fit at divisor
+   6, per-tick tracking of the coherence, the coherence-only cutoff, both
+   conservation rescales and the relabel rules: the walls, the rescale /
+   backoff / eject counters, population, energy and purity at every output;
+   every record finite, the coherence fit at N + k points, a rescale fired;
+   then 5 booster ``_tick_core`` ticks from its last state thinned to every
+   fourth point (N = 256, k = 256) on the card against the same ticks on the
+   CPU (1e-9 relative);
+17. kernels at the booster's shapes, checked and timed as in phase 3;
+18. ECR gate (``tests/test_ecr_parity.py``): Tully C at x0 = -2, p0 = 20,
+   N = 64, 400 ticks against the port's reflective DVR: population RMSE
+   < 1e-3 and the total population within 2% of 1 at every output;
+19. kernels at the ECR run's shapes not seen before, as in phase 3.
 
-Each of phases 5-7, 10, 11 and 14 resets the launch counters just before it
-and reads them just after; every forward kernel must have launched in each,
-the two length VJP kernels in phases 10 and 11, and ``rbf_gram_vjp_points``
-in phase 14.  The second-to-last
+Each of phases 5-7, 10, 11, 14, 16 and 18 resets the launch counters just
+before it and reads them just after; every forward kernel must have launched
+in each, the two length VJP kernels in phases 10 and 11, and
+``rbf_gram_vjp_points`` in phase 14.  The second-to-last
 lines are a JSON object ``{"kernels": [...]}`` and the ``nvidia-smi``
 name/power line; the last line is ``{"ok": true, "device": {...}}``.  TF32 is
 off for matmuls and convolutions: the port computes in float64, and float32
@@ -118,6 +138,14 @@ TOL_CONSERVED = 1e-6        # norm and energy of the absorbing DVR before the ab
 #: tests/test_validation.py's and tests/test_full_ard.py's bounds
 VAL_REL_RMSE, VAL_POP_REL, FULL_ARD_GAIN = 5e-3, 0.02, 0.7
 TOL_NLL_AGREE = 1e-9        # NLL loss and gradient, card against CPU, relative
+TOL_ZOOM_AGREE = 1e-8       # one zoom L-BFGS solve at N = 256, card against CPU, relative
+BOOST_N, BOOST_TICKS = 1024, 80
+#: the booster run's seed (see ``booster_phase``)
+BOOST_SEED = 0
+BOOST_AGREE_TICKS, BOOST_AGREE_STRIDE = 5, 4
+TOL_BOOST_AGREE = 1e-9      # booster ticks, card against CPU, relative to the largest |entry|
+ECR_N, ECR_TICKS = 64, 400
+ECR_RMSE, ECR_POP = 1e-3, 0.02   # tests/test_ecr_parity.py
 FORWARD = ("rbf_gram", "rbf_predict_mean")
 LENGTH_VJPS = ("rbf_gram_vjp", "rbf_predict_vjp")
 DVR_TABLE = Path(__file__).resolve().parent / "gple_tpu_torch" / "data" / "sac_crossing_dvr.json"
@@ -583,14 +611,20 @@ def ladder_phase():
     launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
     stages = [dict(tag=st["tag"], seconds=st["seconds"], error=st["error"],
                    averages=st["averages"].tolist(), check=st["check"].tolist(),
+                   zoom=_zoom_summary(st["zoom"]),
                    launches={f"{k[0]} {k[1]}": v for k, v in counts.items()})
               for st, counts in zip(optimizer.stages, stage_launches.records)]
-    result = dict(n=LADDER_N, lbfgs_steps=LADDER_STEPS, wall_s=wall, accepted=res.opt_type,
+    fan = _fan_stage(optimizer, density, extra, energies)
+    result = dict(n=LADDER_N, lbfgs_steps=LADDER_STEPS, line_search=optimizer.line_search,
+                  wall_s=wall, accepted=res.opt_type,
                   error=res.error, stages=stages, targets=[1.0, e0, 1.0],
                   diag_lengths=optimizer.diag_lengths.tolist(),
                   off_params=optimizer.off_params.tolist(),
-                  al_lam=optimizer._al_lam.tolist(), launches=launches)
+                  al_lam=optimizer._al_lam.tolist(), launches=launches,
+                  fan_first_stage=fan)
     log("ladder: " + json.dumps(result))
+    if not np.isfinite(fan["error"]):
+        raise AssertionError(f"ladder: the fan's stage {fan}")
     if not np.isfinite(res.error) or res.opt_type not in ("local_previous", "local_initial",
                                                           "global"):
         raise AssertionError(f"ladder: result {res}")
@@ -598,6 +632,76 @@ def ladder_phase():
         raise AssertionError("ladder: non-finite averages")
     _check_path_launches("ladder", launches, FORWARD + LENGTH_VJPS)
     return launches, by_shape, result
+
+
+def _zoom_summary(counts) -> dict:
+    """The zoom's counts of a stage with its host pulls per L-BFGS iteration."""
+    its = max(counts["iterations"], 1)
+    return dict(counts, evaluations_per_iteration=counts["evaluations"] / its,
+                syncs_per_iteration=counts["syncs"] / its)
+
+
+def _fan_stage(optimizer, density, extra, energies) -> dict:
+    """The ladder's first stage (a fresh optimizer's ``local_previous``: the
+    initial parameters, zero multipliers) once more with the fixed fan, for
+    its wall beside the zoom's."""
+    from gple_tpu_torch.gp import opt as O
+
+    with torch.inference_mode(False), torch.enable_grad():
+        data, active = optimizer._pack_data(density, extra, energies)
+        data = {k: v.clone() for k, v in data.items()}
+        host = {k: data[k].cpu().numpy() for k in ("dlb", "dub", "olb", "oub")}
+        f64 = dict(dtype=torch.float64, device=density.points.device)
+        start_diag = np.clip(np.tile(optimizer.sigma_r0, (2, 1)), host["dlb"], host["dub"])
+        start_off = np.clip(optimizer._initial_off(), host["olb"], host["oub"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = O._run_stage(torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64),
+                           torch.zeros((2, 3), **f64), data, bool(active[1]),
+                           optimizer.lbfgs_steps, O.AL_OUTER, "fan")
+        err = float(out[2])
+        return dict(line_search="fan", seconds=time.perf_counter() - t0, error=err,
+                    averages=out[3].cpu().numpy().tolist())
+
+
+def zoom_agreement_phase():
+    """Phase 10c: the ladder's first zoom L-BFGS solve (the elementwise fit
+    of the diagonal lengths, to its convergence test) at N = 256 on the card
+    against the same solve on the CPU: the final iterate, relative.  (A solve
+    of the coherence's parameters walks a flat valley towards its bounds,
+    where rounding-level differences of the loss move the end point: not a
+    comparison of the two devices.)"""
+    from gple_tpu_torch.entry import SIGMA
+    from gple_tpu_torch.gp import opt as O
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        density, extra, energies, e0 = _ladder_problem(LADDER_AGREE_N, dev)
+        optimizer = O.Optimizer(model=MODEL, mass=MASS, total_energy=e0, purity=1.0,
+                                sigma_r0=np.asarray(SIGMA), opt_mode="ladder", device=dev)
+        with torch.inference_mode(False), torch.enable_grad():
+            data, _ = optimizer._pack_data(density, extra, energies)
+            data = {k: v.clone() for k, v in data.items()}
+            dlb, dub = data["dlb"], data["dub"]
+            z0 = O._bounds_to_sigmoid(torch.tensor(np.tile(SIGMA, (2, 1)), device=dev),
+                                      dlb, dub)
+
+            def loss(z):
+                return O._diag_loss(O._sigmoid_to_bounds(z, dlb, dub), data)
+
+            counts = dict(O.ZOOM_COUNTS)
+            t0 = time.perf_counter()
+            z = O._lbfgs_zoom(loss, z0, LADDER_STEPS)
+            outs[dev] = (z.detach().cpu(), time.perf_counter() - t0,
+                         {k: O.ZOOM_COUNTS[k] - counts[k] for k in counts})
+    err = _rel(outs["cuda"][0].numpy(), outs["cpu"][0].numpy())
+    moved = float((outs["cuda"][0] - z0.cpu()).abs().max())
+    log(f"zoom agreement N={LADDER_AGREE_N}: final z card vs CPU (relative) {err!r}; "
+        f"moved {moved!r}; card {outs['cuda'][1]!r} s {json.dumps(outs['cuda'][2])}; "
+        f"CPU {outs['cpu'][1]!r} s {json.dumps(outs['cpu'][2])}")
+    if not (err <= TOL_ZOOM_AGREE and moved > 1e-6):
+        raise AssertionError(f"zoom: the card's solve disagrees with the CPU's ({err}) "
+                             f"or did not move ({moved})")
 
 
 def _count_stage_launches():
@@ -719,8 +823,10 @@ def parity_phase():
     rpop = OBS.population_each_surface(resumed.density).cpu().numpy()
     walls = _walls(calls, wall, RP_TICKS)
     walls.update(init_marks=dict(drv.init_marks), phase_times=drv.phase_times,
-                 stages=[dict(tag=st["tag"], seconds=st["seconds"], check=st["check"].tolist())
+                 stages=[dict(tag=st["tag"], seconds=st["seconds"], check=st["check"].tolist(),
+                              zoom=_zoom_summary(st["zoom"]))
                          for st in drv.optimizer.stages],
+                 line_search=drv.optimizer.line_search,
                  resumed=_walls(rcalls, rwall, RP_TICKS - RP_CHECKPOINT),
                  populations=pop.tolist(), resumed_populations=rpop.tolist(),
                  resume_max_abs_diff=float(np.max(np.abs(pop - rpop))),
@@ -782,10 +888,12 @@ def _rel(ours, theirs) -> float:
     return float(np.abs(ours - theirs).max() / np.abs(theirs).max())
 
 
-#: outputs of the production DVR that phase 14 fits: the initial packet, and
-#: the packet at <x> = -4 before the crossing (t = 400), sheared in phase space
-#: by its free flight (a tilted Wigner function)
-SHOT_FRAMES = (0, 40)
+#: outputs of the production DVR that phase 14 fits: the initial packet, the
+#: packet at <x> = -4 before the crossing (t = 400), sheared in phase space by
+#: its free flight (a tilted Wigner function), and the run's last output after
+#: the crossing (t = 980), where the fixed fan could not leave its start
+TILT_FRAME, POST_FRAME = 40, -1
+SHOT_FRAMES = (0, TILT_FRAME, POST_FRAME)
 #: points of each evolve_fit snapshot (tests/test_validation.py:66)
 EVOLVE_POINTS = 150
 #: tests/test_validation.py's DVR physics (n = 385; the Liouville grid n = 97)
@@ -839,7 +947,7 @@ def oracles_phase():
     if not (se["final_x"] > 0.0 and averages.shape[0] == len(res.times)):
         raise AssertionError(f"oracles: se did not reach a stop condition past x = 0: {se}")
 
-    # the Wigner frames of phase 14's snapshots at n = 1295, the tilted one
+    # the Wigner frames of phase 14's snapshots at n = 1295, the last one
     # timed and held against the same transform on the CPU
     c = solver.cfg
     shots = {}
@@ -994,7 +1102,9 @@ def validation_phase(se_res, shots, val_dvr):
     snaps = {f"t{se_res.times[i]:g}_{name}": dict(
         mse=f.mse, rel_rmse=float(np.sqrt(f.mse) / np.abs(shots[i]).max()), nll=f.nll,
         population_grid=f.population_grid, population_prm=f.population_prm,
-        lengths=f.state.params.lengths.cpu().numpy().tolist())
+        lengths=f.state.params.lengths.cpu().numpy().tolist(),
+        start=(0.5 * V.grid_weighted_selection(RandomKeys(0, "cpu"), coords, shots[i].ravel(),
+                                               V.DEFAULT_NUM_POINTS)[0].std(axis=0)).tolist())
         for (i, name), f in fits.items()}
     result = dict(grid_points=coords.shape[0], walls=walls, screenshots=snaps,
                   evolve=[dict(time=fr.time, mse=fr.mse,
@@ -1014,9 +1124,21 @@ def validation_phase(se_res, shots, val_dvr):
     # every fit within the bounds, except the axis-aligned fit of the tilted
     # production frame, which is recorded (its population is what the full
     # ARD repairs) and must lose to the full-ARD fit
-    t_tilt = f"t{se_res.times[SHOT_FRAMES[-1]]:g}"
+    t_tilt = f"t{se_res.times[TILT_FRAME]:g}"
+    t_post = f"t{se_res.times[POST_FRAME]:g}"
     for name, shot in snaps.items():
-        if name != f"{t_tilt}_axis" and not within(shot):
+        if name.startswith(t_post):
+            # the post-crossing frame: both fits must leave their start
+            # (lengths0 = std / 2 of the selection; the cross term 0)
+            lengths = np.asarray(shot["lengths"])
+            fitted = 1.0 / np.abs(np.diagonal(lengths)) if lengths.ndim == 2 else lengths
+            moved = float(np.max(np.abs(fitted / np.asarray(shot["start"]) - 1.0)))
+            shot.update(moved=moved, within_bounds=bool(within(shot)))
+            log(f"validation: post-crossing {name}: moved {moved!r}, within the "
+                f"snapshot bounds {shot['within_bounds']}")
+            if not (moved > 1e-3 and np.all(np.isfinite(lengths))):
+                raise AssertionError(f"validation: the {name} fit kept its start: {shot}")
+        elif name != f"{t_tilt}_axis" and not within(shot):
             raise AssertionError(f"validation: screenshot {name} {shot}")
     for axis, full in ((snaps[f"{t_tilt}_axis"]["mse"], snaps[f"{t_tilt}_full_ard"]["mse"]),
                        (result["tilted"]["axis_mse"], result["tilted"]["full_mse"])):
@@ -1031,7 +1153,7 @@ def validation_phase(se_res, shots, val_dvr):
                 and abs(fr.population_rescaled.sum() - 1.0) < 1e-8 and fr.mse < 1e-5):
             raise AssertionError(f"validation: evolve_fit frame {fr}")
     _check_path_launches("validation", launches, FORWARD + ("rbf_gram_vjp_points",))
-    nll_agreement(coords, shots[SHOT_FRAMES[-1]].ravel())
+    nll_agreement(coords, shots[TILT_FRAME].ravel())
     return launches, by_shape, result
 
 
@@ -1067,6 +1189,177 @@ def nll_agreement(coords, vals):
     for name, e in errs.items():
         if not max(e.values()) <= TOL_NLL_AGREE:
             raise AssertionError(f"validation: NLL {name} disagrees: {e}")
+
+
+def booster_phase():
+    """Phase 16: the crossing physics at N = 1024 with the booster (1024
+    extra coherence points) and every default-off flag through
+    ``GPLEDriver.run`` on the card."""
+    from gple_tpu_torch.driver import GPLEDriver
+    from gple_tpu_torch.entry import booster_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    cfg = booster_config(BOOST_N, seed=BOOST_SEED)
+    drv = GPLEDriver(cfg, device="cuda")
+    calls, coh_points = {}, []
+    _instrument(drv, calls)
+
+    def seen(rec):
+        coh_points.append((rec.time, bool(drv.gps.active[1]),
+                           int(drv.gps.offdiag.features.shape[0]), drv._coh_k))
+
+    torch.cuda.synchronize()
+    GK.reset_launches()
+    t0 = time.perf_counter()
+    hist = drv.run(max_ticks=BOOST_TICKS, callback=seen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+    walls = _walls(calls, wall, BOOST_TICKS)
+    counters = {k: drv.stats.get(k, 0) for k in ("coh_rescales", "pop_rescales",
+                                                 "coh_len_backoffs", "coh_boost_ejected")}
+    result = dict(n=BOOST_N, k=cfg.coh_fit_extra, ticks=BOOST_TICKS, walls=walls,
+                  init_marks=dict(drv.init_marks), phase_times=drv.phase_times,
+                  counters=counters, stats=drv.stats, coh_div_eff=drv._coh_div_eff,
+                  coherence_points_at_outputs=coh_points, launches=launches)
+    log(f"booster N={BOOST_N}: " + json.dumps(result))
+    for rec in hist:
+        log(f"booster record t={rec.time} population_mci={sum(rec.population_mci)!r} "
+            f"ppl_mci={rec.population_mci.tolist()} pop_prm={rec.population_prm!r} "
+            f"E_prm/pop={rec.energy_prm / rec.population_prm!r} E_mci={rec.energy_mci!r} "
+            f"purity_prm={rec.purity_prm!r} purity_mci={rec.purity_mci!r} opt={rec.opt_type}")
+    for rec in hist:
+        values = [rec.population_prm, rec.energy_prm, rec.energy_mci, rec.purity_prm,
+                  rec.purity_mci, rec.x_average, *rec.population_mci, *rec.population_prm_each]
+        if not np.all(np.isfinite(values)):
+            raise AssertionError(f"booster: non-finite record at t={rec.time}")
+    for name, tree in (("density", drv.density), ("extra", drv.extra), ("gps", drv.gps)):
+        _check_finite(f"booster {name}", tree)
+    boosted = [pts for _, active, pts, k in coh_points if active and k == cfg.coh_fit_extra]
+    if not (boosted and all(p == BOOST_N + cfg.coh_fit_extra for p in boosted)):
+        raise AssertionError(f"booster: the coherence never held N + k points: {coh_points}")
+    if drv.gps.offdiag.features.shape[0] != BOOST_N + drv._coh_k:
+        raise AssertionError("booster: the live coherence fit is not N + k points")
+    if counters["coh_rescales"] + counters["pop_rescales"] < 1:
+        raise AssertionError(f"booster: no rescale fired: {counters}")
+    if drv.stats["element_activations"] < 1 or walls["reopts"] < 1:
+        raise AssertionError(f"booster: no activation or reopt: {drv.stats}")
+    _check_path_launches("booster", launches)
+    return launches, by_shape, drv
+
+
+def booster_seed_scan(seeds=range(12), ticks: int = 12, n: int = BOOST_N, device="cuda"):
+    """For each seed, the booster run's first ``ticks`` ticks on ``device``:
+    the ticks at which elements activated and the first tick with a
+    non-finite label.  Not a phase of ``main`` (it picked ``BOOST_SEED``):
+    ``python3 -c "import chip_smoke as c; c.booster_seed_scan()"``."""
+    from gple_tpu_torch.driver import GPLEDriver
+    from gple_tpu_torch.entry import booster_config
+
+    for seed in seeds:
+        drv = GPLEDriver(booster_config(n, seed=seed), device=device)
+        drv.initialize()
+        activations, first_nan = [], None
+        for t in range(1, ticks + 1):
+            before = drv.density.active.tolist()
+            drv.step(t)
+            if drv.density.active.tolist() != before:
+                activations.append((t, drv.density.active.tolist()))
+            if first_nan is None and not bool(torch.isfinite(drv.density.rho).all()):
+                first_nan = t
+        log(f"booster seed scan N={n} on {device}: " + json.dumps(dict(
+            seed=seed, activations=activations, first_nan_tick=first_nan, stats=drv.stats)))
+
+
+def booster_agreement(drv):
+    """Phase 16b: BOOST_AGREE_TICKS booster ``_tick_core`` ticks on the card
+    against the same ticks on the CPU from one state, relative to each
+    array's largest |entry|.  The state is the booster run's last one thinned
+    to every BOOST_AGREE_STRIDE-th point of each cloud -- the first k / stride
+    coherence extra points are then booster points, a booster state at
+    N / stride -- refitted on the card and copied to the CPU: at N = 1024 the
+    plain versions take ~64 s a tick on the card's host."""
+    from gple_tpu_torch import convert
+    from gple_tpu_torch import driver as D
+    from gple_tpu_torch.storage import Density, fit_gp_states
+
+    cfg = drv.cfg
+    diag, off = drv.optimizer.fitted_params()
+    step = BOOST_AGREE_STRIDE
+    density, extra = (Density(points=c.points[:, ::step], rho=c.rho[:, ::step],
+                              active=c.active) for c in (drv.density, drv.extra))
+    args = dict(track=drv._track_moments, k=drv._coh_k // step, div=drv._coh_div_eff,
+                block=drv._block_diag())
+    with torch.inference_mode():
+        gps = fit_gp_states(diag, off, density, off_extra=D._off_extra_slice(extra, args["k"]),
+                            block_diag=args["block"])
+    start = (density, extra, gps, diag, off)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        density, extra, gps, dp, op = (
+            start if dev == "cuda" else
+            [convert.to_torch(convert.to_numpy(x), "cpu") for x in start])
+        t0 = time.perf_counter()
+        for _ in range(BOOST_AGREE_TICKS):
+            density, extra, small, gps = D._tick_core(
+                cfg.model, cfg.mass, cfg.dt, density, extra, gps, dp, op,
+                D._evolve_dist_for(cfg.evolve_cutoff), args["track"], args["k"],
+                args["div"], args["block"])
+        outs[dev] = dict(rho=density.rho.cpu(), extra_rho=extra.rho.cpu(),
+                         points=density.points.cpu(), v=gps.offdiag.v.cpu(),
+                         alpha=gps.diag.alpha.cpu(), small=small.cpu(),
+                         s=time.perf_counter() - t0)
+    errs = {k: _rel(outs["cuda"][k].numpy(), outs["cpu"][k].numpy())
+            for k in ("points", "rho", "extra_rho", "alpha", "v")}
+    log(f"booster agreement: {BOOST_AGREE_TICKS} ticks card vs CPU (relative) "
+        + json.dumps(dict(errs, n=int(outs["cpu"]["points"].shape[1]),
+                          coherence_points=int(outs["cpu"]["v"].shape[0]),
+                          card_s=outs["cuda"]["s"], cpu_s=outs["cpu"]["s"], **args)))
+    if not torch.equal(outs["cuda"]["small"], outs["cpu"]["small"]):
+        raise AssertionError("booster: the card's activation flags differ from the CPU's")
+    bad = {k: v for k, v in errs.items() if not v <= TOL_BOOST_AGREE}
+    if bad:
+        raise AssertionError(f"booster: card and CPU ticks disagree: {bad}")
+
+
+def ecr_phase():
+    """Phase 18: the ECR gate of ``tests/test_ecr_parity.py`` on the card:
+    Tully C at x0 = -2, p0 = 20, N = 64 for 400 ticks against the port's
+    reflective DVR (dx_input = 1)."""
+    from gple_tpu_torch.config import GPLEConfig
+    from gple_tpu_torch.driver import GPLEDriver
+    from gple_tpu_torch.oracles import DVRConfig, DVRSolver
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    cfg = GPLEConfig(model="ECR", mass=MASS, x0=-2.0, p0=20.0, sigma_p0=1.0, output_time=10.0,
+                     reopt_time=10.0, dt=1.0, num_points=ECR_N)
+    dvr = DVRSolver(DVRConfig(model="ECR", boundary="reflective", mass=cfg.mass, x0=cfg.x0,
+                              p0=cfg.p0, sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax,
+                              dx_input=1.0, output_time=cfg.output_time, dt_input=cfg.dt),
+                    "cuda").run(store_wigner=False)
+    drv = GPLEDriver(cfg, device="cuda")
+    torch.cuda.synchronize()
+    GK.reset_launches()
+    t0 = time.perf_counter()
+    hist = drv.run(max_ticks=ECR_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+    gt = np.array([r.time for r in hist])
+    gp0 = np.array([r.population_mci[0] for r in hist])
+    sp0 = np.interp(gt, dvr.times, dvr.populations[:, 0])
+    n_cmp = min(len(gt), int(np.searchsorted(gt, dvr.times[-1]) + 1))
+    rmse = float(np.sqrt(np.mean((gp0[:n_cmp] - sp0[:n_cmp]) ** 2)))
+    pop_dev = float(np.max(np.abs([r.population_mci.sum() - 1.0 for r in hist])))
+    result = dict(n=ECR_N, ticks=ECR_TICKS, run_s=wall, records=len(hist), compared=n_cmp,
+                  rmse_vs_dvr=rmse, max_population_deviation=pop_dev,
+                  final_population_mci=hist[-1].population_mci.tolist(), stats=drv.stats,
+                  phase_times=drv.phase_times, dvr_outputs=len(dvr.times))
+    log("ecr: " + json.dumps(result))
+    if not (rmse < ECR_RMSE and pop_dev < ECR_POP and len(hist) > 1):
+        raise AssertionError(f"ecr: RMSE {rmse} or population deviation {pop_dev}")
+    _check_path_launches("ecr", launches)
+    return launches, by_shape, result
 
 
 def kernel_summary(cases, paths, per):
@@ -1156,6 +1449,7 @@ def main() -> int:
     cases += vjp_phase()
     ladder_launches, ladder_by_shape, _ = ladder_phase()
     ladder_agreement_phase()
+    zoom_agreement_phase()
     rp_launches, rp_by_shape, resume_by_shape, _ = parity_phase()
     cases += new_shapes_phase("ladder / reference parity", _keys(cases), ladder_by_shape,
                               rp_by_shape, resume_by_shape)
@@ -1163,12 +1457,20 @@ def main() -> int:
     val_launches, val_by_shape, _ = validation_phase(se_res, shots, val_dvr)
     del se_res, shots, val_dvr
     cases += new_shapes_phase("validation", _keys(cases), val_by_shape)
+    boost_launches, boost_by_shape, boost_drv = booster_phase()
+    booster_agreement(boost_drv)
+    del boost_drv
+    cases += new_shapes_phase("booster", _keys(cases), boost_by_shape)
+    ecr_launches, ecr_by_shape, _ = ecr_phase()
+    cases += new_shapes_phase("ecr", _keys(cases), ecr_by_shape)
     paths = {"slice": (slice_launches, slice_by_shape),
              "trajectory": (traj_launches, traj_by_shape),
              "crossing": (cross_launches, cross_by_shape),
              "ladder": (ladder_launches, ladder_by_shape),
              "reference_parity": (rp_launches, rp_by_shape),
-             "validation": (val_launches, val_by_shape)}
+             "validation": (val_launches, val_by_shape),
+             "booster": (boost_launches, boost_by_shape),
+             "ecr": (ecr_launches, ecr_by_shape)}
 
     print(json.dumps({"kernels": kernel_summary(cases, paths, per)}))
     print(smi)

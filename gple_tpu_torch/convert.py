@@ -13,8 +13,9 @@ containers are matched by class name.
 
 :func:`config_to_torch` maps a ``GPLEConfig`` field for field, and
 :func:`driver_to_torch` carries a ``gple_tpu`` driver's whole trajectory state
-(clouds, fit, optimizer, Metropolis parameters, conserved targets and drift
-references) into the port's driver, so both can advance from one state.
+(clouds, fit, optimizer, Metropolis parameters, conserved targets, drift
+references and the booster's state) into the port's driver, so both can
+advance from one state.
 """
 
 from __future__ import annotations
@@ -101,8 +102,9 @@ def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) ->
     density, extra cloud and fitted states; the optimizer's lengths, off
     parameters, magnitudes, correlation bounds and warm multipliers;
     ``mc_params``; the conserved targets
-    (``total_energy``, ``purity``, ``purity_ratio``, ``_pop_sum0``) and the
-    drift reference ``_fit_ref``.  ``rng`` is the port driver's root key (a
+    (``total_energy``, ``purity``, ``purity_ratio``, ``_pop_sum0``), the
+    drift reference ``_fit_ref``, the live booster size ``_coh_k``, the
+    backoff's ``_coh_div_eff``, the tracking mode and the stats.  ``rng`` is the port driver's root key (a
     stand-in replaying ``jax_driver.key`` makes both draw the same numbers)."""
     cfg = config_to_torch(jax_driver.cfg)
     drv = GPLEDriver(cfg, outdir=outdir, verbose=verbose, device=device, rng=rng)
@@ -117,7 +119,8 @@ def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) ->
         diag_magnitudes=np.array(jopt.diag_magnitudes),
         off_magnitude=float(jopt.off_magnitude), lbfgs_steps=jopt.lbfgs_steps,
         corr_bounds=tuple(float(b) for b in jopt.corr_bounds), opt_mode=jopt.opt_mode,
-        off_len_div=float(jopt.off_len_div), device=device)
+        off_len_div=float(jopt.off_len_div), coh_fit_extra=int(jopt.coh_fit_extra),
+        device=device)
     if jopt._al_lam is not None:
         drv.optimizer._al_lam = np.array(jopt._al_lam)
     res = jax_driver.opt_result
@@ -130,4 +133,7 @@ def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) ->
         setattr(drv, name, float(getattr(jax_driver, name)))
     drv._fit_ref = {k: float(v) for k, v in jax_driver._fit_ref.items()}
     drv._coh_div_eff = float(jax_driver._coh_div_eff)
+    drv._coh_k = int(jax_driver._coh_k)
+    drv._track_moments = str(jax_driver._track_moments)
+    drv.stats = dict(jax_driver.stats)
     return drv

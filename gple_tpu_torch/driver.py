@@ -14,31 +14,40 @@ The reference main loop (``gaussian_process_liouville_equation/main.cpp:19-212``
    points (main.cpp:135-202)
 6. stop once <x> passes -x0 (main.cpp:195-200)
 
-Ported: the production path -- the moment optimizer, the block-diagonal
-(corr = 0) complex fit, the raw-mean evolution distribution
-(``evolve_cutoff=False``), cloud tracking, Metropolis re-tuning and the walk
-surrogate, element activation, the output files -- and the reference's own
-settings: the constrained ladder (``opt_mode="ladder"``), whose learnt
-correlation needs the full (2N, 2N) coherence fit, the cutoff evolution
-distribution (``evolve_cutoff=True``) and ``reference_parity`` (all of
-them, corr pinned to 1, the initial purity as the target).  Everything runs
-as the JAX package's boundary-chunked loop: a chunk is a Python loop of
-:func:`_tick_core` with one host pull of its boundary scalars, and a chunk
-ends at every scheduled reopt, output and checkpoint (``run``'s
-``checkpoint_path`` / ``checkpoint_every`` / ``resume_from``, the JAX
-package's ``.npz`` schema, :mod:`gple_tpu_torch.io.checkpoint`).
-:class:`GPLEDriver` raises ``NotImplementedError`` at construction for the
-settings still missing (the booster flags).
+Every ``GPLEConfig`` setting but ``init_cache`` is ported: the production
+path -- the moment optimizer, the block-diagonal (corr = 0) complex fit, the
+raw-mean evolution distribution, cloud tracking, Metropolis re-tuning and
+the walk surrogate, element activation, the output files --; the
+reference's own settings -- the constrained ladder (``opt_mode="ladder"``,
+its inner solver optax's zoom line search), whose learnt correlation needs
+the full (2N, 2N) coherence fit, the cutoff evolution distribution and
+``reference_parity``; and the default-off flags: per-tick moment tracking
+(``moment_per_tick``), the coherence booster (``coh_fit_extra`` carried
+extra points join the coherence fit, with ``coh_len_div`` and the fit-health
+backoff and eject), the coherence-only cutoff (``evolve_cutoff="coh"``), the
+purity and population conservation rescales (``coh_boost_rescale``,
+``pop_rescale``) and the relabel rules (``relabel_conserve``,
+``relabel_mask_coh``, ``coh_reselect``).  Where the JAX package's booster
+diverges, so does this one: the decisions are the same.
+
+Everything runs as the JAX package's boundary-chunked loop: a chunk is a
+Python loop of :func:`_tick_core` with one host pull of its boundary
+scalars, and a chunk ends at every scheduled reopt, output and checkpoint
+(``run``'s ``checkpoint_path`` / ``checkpoint_every`` / ``resume_from``, the
+JAX package's ``.npz`` schema, :mod:`gple_tpu_torch.io.checkpoint`).
 
 Not ported, by design: the fused whole-segment scan with its rollback and
 replay, its event hints, the init cache and the persistent XLA cache.  They
 existed to hide ~0.2 s of remote-TPU dispatch latency per call; the chunked
-path makes the same decisions (``gple_tpu/driver.py:438-442``).
+path makes the same decisions (``gple_tpu/driver.py:438-442``), so the fused
+path's copies of the flags (``:404-513``, ``:1354-1478``) have no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from functools import partial
 from typing import Callable, List, Optional
@@ -56,6 +65,7 @@ from gple_tpu_torch.gp.opt import (
     CORR_BOUND,
     INITIAL_NOISE,
     Optimizer,
+    moment_kernel_params,
 )
 from gple_tpu_torch.io import checkpoint as ckpt
 from gple_tpu_torch.io.writers import OutputWriters
@@ -93,12 +103,20 @@ def gp_dist_all_nocut(gps: GPStates, pts3):
     return predict_all(gps, pts3, with_variance=False)
 
 
+def gp_dist_coh_cut(gps: GPStates, pts3):
+    """Raw-mean diagonals + variance-cutoff coherence (``evolve_cutoff="coh"``):
+    the cutoff suppresses the low-signal / high-variance region where a
+    near-interpolating coherence fit extrapolates noise that the diagonals
+    would read at their branch points."""
+    return predict_all(gps, pts3, with_variance=False, off_with_variance=True)
+
+
 def _evolve_dist_for(mode):
     """The evolution distribution for a ``GPLEConfig.evolve_cutoff`` setting:
-    False = raw means, True = the cutoff predictions (the reference)."""
+    False = raw means, True = the cutoff predictions (the reference), "coh" =
+    the cutoff on the coherence only."""
     if mode == "coh":
-        raise NotImplementedError("evolve_cutoff='coh' is not ported (ROADMAP Queue A "
-                                  "item 13)")
+        return gp_dist_coh_cut
     return gp_dist_all if mode else gp_dist_all_nocut
 
 
@@ -124,6 +142,14 @@ def init_dist_all(params, pts3):
     return torch.stack([INIT_DIST_ELEMS[k](params, pts3[k]) for k in range(NUM_ELEMENTS)])
 
 
+def _off_extra_slice(extra: Density, k: int):
+    """The first ``k`` off-diagonal extra points as (points, rho) for the
+    coherence fit, or None when the booster is off."""
+    if k <= 0:
+        return None
+    return extra.points[OFFDIAG_INDEX, :k], extra.rho[OFFDIAG_INDEX, :k]
+
+
 # -- the tick and the reoptimization's device work -------------------------------------
 
 @torch.inference_mode()
@@ -132,57 +158,72 @@ def _tick_core(model: str, mass: float, dt: float, density: Density,
                evolve_dist, track_moments: str, coh_fit_extra: int,
                coh_len_div: float, block_diag: bool):
     """THE tick body: evolve density + extra points with ``evolve_dist``, run
-    the is-very-small activation test with the cutoff distribution, and refit
-    the GP states from the moved points.  Returns
-    ``(density, extra, small (3,) bool, gps)``.
-
-    Only ``track_moments="none"`` and ``coh_fit_extra=0`` are ported: with
-    them the kernel parameters are held and the extra cloud does not join the
-    fit (``coh_len_div`` is then unused)."""
-    if track_moments != "none":
-        raise NotImplementedError("_tick_core: per-tick moment tracking is not ported")
-    if coh_fit_extra != 0:
-        raise NotImplementedError("_tick_core: the coherence booster is not ported")
-    del coh_len_div
+    the is-very-small activation test with the cutoff distribution,
+    optionally track the moment parameters of the moved cloud
+    (``track_moments`` "all" or "off", coherence lengths over
+    ``coh_len_div``), and refit the GP states from the moved points, the
+    coherence with the first ``coh_fit_extra`` extra points (the booster).
+    Returns ``(density, extra, small (3,) bool, gps)``."""
     new_density = EV.evolve_step(model, mass, dt, density, evolve_dist, gps)
     new_extra = EV.evolve_step(model, mass, dt, extra, evolve_dist, gps)
     small = EV.is_very_small(model, mass, dt, new_density, gp_dist_all, gps)
+    off_extra = _off_extra_slice(new_extra, coh_fit_extra)
+    if track_moments != "none":
+        diag_params, off_params = moment_kernel_params(
+            new_density, diag_params, off_params, off_extra=off_extra,
+            off_len_div=coh_len_div, track_diag=track_moments == "all")
     new_gps = fit_gp_states(diag_params, off_params, new_density, prev=gps,
-                            block_diag=block_diag)
+                            off_extra=off_extra, block_diag=block_diag)
     return new_density, new_extra, small, new_gps
 
 
-def _fit_states_obs(diag_params, off_params, density: Density, block_diag: bool):
-    """``fit_gp_states`` plus its integral observables."""
-    gps = fit_gp_states(diag_params, off_params, density, block_diag=block_diag)
+def _fit_states_obs(coh_k: int, diag_params, off_params, density: Density,
+                    extra: Density, block_diag: bool):
+    """``fit_gp_states`` (the booster's ``coh_k`` extra points joining the
+    coherence) plus its integral observables."""
+    gps = fit_gp_states(diag_params, off_params, density,
+                        off_extra=_off_extra_slice(extra, coh_k), block_diag=block_diag)
     return gps, gps.population(), gps.purity()
 
 
-def _regen_extra_core(n_extra: int, density: Density, gps: GPStates, keys,
-                      cutoff: bool) -> Density:
+def _regen_extra_core(use_cutoff, coh_k: int, n_extra: int, density: Density,
+                      prev_extra: Density, gps: GPStates, keys) -> Density:
     """Regenerate the extra clouds from a fresh fit (reference mc.cpp:59-120
     via main.cpp:165-172): one key per active element (None for an inactive
     one, whose cloud is its first point repeated with zero labels), and all
-    three clouds labeled by one :func:`predict_all` (raw means, or the cutoff
-    predictions under ``evolve_cutoff=True``) -- one prediction for both
-    diagonal elements and one for the coherence."""
+    three clouds labeled by one :func:`predict_all` with the cutoff of the
+    ``GPLEConfig.evolve_cutoff`` mode ``use_cutoff`` -- one prediction for
+    both diagonal elements and one for the coherence.  The booster's ``coh_k``
+    coherence slots keep their carried points and evolved labels while the
+    coherence was and is active."""
     pts = torch.stack([
         mc.jitter_points(keys[k], density.points[k], n_extra) if keys[k] is not None
         else density.points[k][:1].expand(n_extra, density.points.shape[-1])
         for k in range(NUM_ELEMENTS)])
-    rho = predict_all(gps, pts, with_variance=cutoff)
+    rho = predict_all(gps, pts, with_variance=use_cutoff is True,
+                      off_with_variance=bool(use_cutoff))
+    if coh_k > 0:
+        carry = density.active[OFFDIAG_INDEX] & prev_extra.active[OFFDIAG_INDEX]
+        pts[OFFDIAG_INDEX, :coh_k] = torch.where(
+            carry, prev_extra.points[OFFDIAG_INDEX, :coh_k], pts[OFFDIAG_INDEX, :coh_k])
+        rho[OFFDIAG_INDEX, :coh_k] = torch.where(
+            carry, prev_extra.rho[OFFDIAG_INDEX, :coh_k], rho[OFFDIAG_INDEX, :coh_k])
     return Density(points=pts, rho=rho, active=density.active)
 
 
 @torch.inference_mode()
-def _reopt_epilogue(n_extra: int, density: Density, diag_params, off_params, keys,
-                    cutoff: bool = False, block_diag: bool = True):
+def _reopt_epilogue(use_cutoff, coh_k: int, n_extra: int, density: Density,
+                    prev_extra: Density, diag_params, off_params, keys,
+                    block_diag: bool = False):
     """Everything after a reoptimization's parameter choice: refit the GP
-    states from the (possibly re-selected) cloud, regenerate the extra clouds
-    labeled by the fresh fit, and the fit-reference integrals for the drift
-    check.  Returns ``(gps, extra, population, purity)``."""
-    gps, pop, pur = _fit_states_obs(diag_params, off_params, density, block_diag)
-    return gps, _regen_extra_core(n_extra, density, gps, keys, cutoff), pop, pur
+    states from the (possibly re-selected) cloud and the booster slots of
+    ``prev_extra``, regenerate the extra clouds labeled by the fresh fit, and
+    the fit-reference integrals for the drift check.  Returns
+    ``(gps, extra, population, purity)``."""
+    gps, pop, pur = _fit_states_obs(coh_k, diag_params, off_params, density, prev_extra,
+                                    block_diag)
+    extra = _regen_extra_core(use_cutoff, coh_k, n_extra, density, prev_extra, gps, keys)
+    return gps, extra, pop, pur
 
 
 #: walk-surrogate grid resolution per phase-space axis; 256 resolves the
@@ -289,14 +330,6 @@ def _unported(cfg: GPLEConfig) -> List[str]:
     """The settings of ``cfg`` that the port's driver does not implement."""
     checks = (
         (cfg.opt_mode not in ("moment", "ladder"), f"opt_mode={cfg.opt_mode!r}"),
-        (cfg.coh_fit_extra > 0, "coh_fit_extra > 0 (the coherence booster, ROADMAP Queue A "
-         "item 13)"),
-        (bool(cfg.moment_per_tick), "moment_per_tick (item 13)"),
-        (cfg.pop_rescale, "pop_rescale (item 13)"),
-        (cfg.coh_boost_rescale, "coh_boost_rescale (item 13)"),
-        (cfg.relabel_conserve, "relabel_conserve (item 13)"),
-        (cfg.relabel_mask_coh, "relabel_mask_coh (item 13)"),
-        (cfg.evolve_cutoff not in (False, True), "evolve_cutoff='coh' (item 13)"),
         (cfg.init_cache, "init_cache (TPU machinery, not to port)"),
     )
     return [what for bad, what in checks if bad]
@@ -333,9 +366,21 @@ class GPLEDriver:
         }
         #: wall seconds of each initialization phase, in order
         self.init_marks: List[tuple] = []
+        #: event counters: activations, re-selections, and (once they fire)
+        #: coh_rescales, pop_rescales, coh_len_backoffs, coh_boost_ejected,
+        #: relabel_rescales, relabel_rejects, relabel_nascent
         self.stats = {"element_activations": 0, "cloud_reselections": 0}
+        #: per-tick moment tracking: "none", "all" or "off" (the coherence
+        #: only); moment mode only (GPLEConfig.moment_per_tick)
+        if cfg.opt_mode != "moment" or not cfg.moment_per_tick:
+            self._track_moments = "none"
+        else:
+            self._track_moments = "off" if cfg.moment_per_tick == "off" else "all"
         self._new_pt_dists = tuple(
             partial(self._new_point_dist, elem=k) for k in range(NUM_ELEMENTS))
+        #: live booster size (GPLEConfig.coh_fit_extra, capped at the extra
+        #: cloud; 0 after a fit-health eject)
+        self._coh_k = min(int(cfg.coh_fit_extra), cfg.num_extra_points)
         #: effective coherence lengthscale divisor, stickily halved by the
         #: fit-health backoff (GPLEConfig.coh_fit_health_factor)
         self._coh_div_eff = float(cfg.coh_len_div)
@@ -411,8 +456,7 @@ class GPLEDriver:
         self.total_energy = float(np.sum(weights * e_host) / weights.sum())
         self.purity = 1.0
         self.purity_ratio = self.purity / (float(mc_pur) * purity_factor(cfg.dim))
-        #: conserved total-population numerator (carried like the JAX
-        #: package's; read only by its pop_rescale, which is not ported)
+        #: conserved total-population numerator (GPLEConfig.pop_rescale)
         self._pop_sum0 = float(pop_sum)
         extra = self._make_extra(density, active, INIT_DIST_ELEMS, init_params)
         self.extra = extra
@@ -423,7 +467,7 @@ class GPLEDriver:
             purity=self.purity, sigma_r0=np.asarray(cfg.sigma_r0),
             lbfgs_steps=cfg.opt_steps_initial, opt_mode=cfg.opt_mode,
             corr_bounds=self._corr_bounds(), off_len_div=cfg.coh_len_div,
-            device=self.device)
+            coh_fit_extra=self._coh_k, device=self.device)
         self.opt_result = self.optimizer.optimize(density, extra, energies)
         marks.append(("optimize", time.perf_counter()))
         self.optimizer.lbfgs_steps = cfg.opt_steps_reopt
@@ -438,13 +482,21 @@ class GPLEDriver:
 
     def _make_extra(self, density: Density, active, dist_elems, dist_params) -> Density:
         """Generate the extra clouds (reference mc.cpp:59-120), one key per
-        active element."""
+        active element.  With the booster on and an earlier extra cloud whose
+        coherence was active, the first ``_coh_k`` coherence points keep their
+        carried points and labels."""
         n_extra = self.cfg.num_extra_points
+        prev = getattr(self, "extra", None)
         pts, rho = [], []
         for k in range(NUM_ELEMENTS):
             if active[k]:
                 p, r = mc.generate_extra_points_element(
                     self._split(), density.points[k], n_extra, dist_elems[k], dist_params)
+                if (k == OFFDIAG_INDEX and self._coh_k > 0 and prev is not None
+                        and bool(prev.active[k])):
+                    kk = self._coh_k
+                    p = torch.cat([prev.points[k, :kk], p[kk:]])
+                    r = torch.cat([prev.rho[k, :kk], r[kk:]])
             else:
                 p = density.points[k][:1].expand(n_extra, density.points.shape[-1])
                 r = torch.zeros((n_extra, 2), dtype=p.dtype, device=p.device)
@@ -459,7 +511,8 @@ class GPLEDriver:
 
     def _refit(self, density: Density) -> GPStates:
         diag_params, off_params = self.optimizer.fitted_params()
-        gps, pop, pur = _fit_states_obs(diag_params, off_params, density, self._block_diag())
+        gps, pop, pur = _fit_states_obs(self._coh_k, diag_params, off_params, density,
+                                        self.extra, self._block_diag())
         # kept for the following _record_fit_ref
         self._fit_obs = (pop, pur)
         return gps
@@ -504,7 +557,8 @@ class GPLEDriver:
         for _ in range(n_ticks):
             density, extra, small, gps = _tick_core(
                 cfg.model, cfg.mass, cfg.dt, density, extra, gps, diag_params, off_params,
-                self._evolve_dist, "none", 0, self._coh_div_eff, self._block_diag())
+                self._evolve_dist, self._track_moments, self._coh_k, self._coh_div_eff,
+                self._block_diag())
             smalls.append(small)
         smalls, active, pop, pur, mc_pur = _pull(
             torch.stack(smalls), self.density.active, gps.population(), gps.purity(),
@@ -519,11 +573,67 @@ class GPLEDriver:
         return True
 
     @torch.inference_mode()
+    def _coh_purity_rescale(self) -> float:
+        """Scalar purity-conservation rescale of the coherence labels (main
+        cloud and booster slots) against the run's initial purity
+        (GPLEConfig.coh_boost_rescale); the factor applied, 1.0 for none."""
+        pf = purity_factor(self.cfg.dim) * self.purity_ratio
+        (m,) = _pull(OBS.purity_each_element(self.density))
+        p_diag = float(m[0, 0] + m[1, 1]) * pf
+        p_off = float(m[0, 1] + m[1, 0]) * pf     # the coherence counted twice
+        if p_off <= 0.0:
+            return 1.0
+        s = math.sqrt(max(self.purity - p_diag, 0.0) / p_off)
+        if s >= 1.0:
+            return 1.0
+        rho = self.density.rho.clone()
+        rho[OFFDIAG_INDEX] *= s
+        self.density = self.density._replace(rho=rho)
+        if self._coh_k > 0:
+            e_rho = self.extra.rho.clone()
+            e_rho[OFFDIAG_INDEX, :self._coh_k] *= s
+            self.extra = self.extra._replace(rho=e_rho)
+        self.stats["coh_rescales"] = self.stats.get("coh_rescales", 0) + 1
+        return s
+
+    @torch.inference_mode()
+    def _pop_conservation_rescale(self) -> float:
+        """Scalar population-conservation rescale of the diagonal labels
+        against the run's initial total population numerator
+        (GPLEConfig.pop_rescale); the factor applied, 1.0 for none or for an
+        out-of-band factor outside [0.5, 2]."""
+        (tot,) = _pull(torch.sum(self.density.rho[_DIAG][..., 0]))
+        tot = float(tot)
+        if not np.isfinite(tot) or tot <= 0.0:
+            return 1.0
+        s = self._pop_sum0 / tot
+        if not (0.5 <= s <= 2.0):
+            self._log(f"population rescale out of band (s={s:.3f}): skipped")
+            return 1.0
+        rho = self.density.rho.clone()
+        rho[_DIAG, :, 0] *= s
+        self.density = self.density._replace(rho=rho)
+        if abs(s - 1.0) > 1e-6:
+            self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + 1
+        return s
+
+    @torch.inference_mode()
     def _reoptimize(self, target_purity: float) -> str:
         cfg = self.cfg
         t0 = time.perf_counter()
         density = self._track_clouds(self.density)
         self.density = density
+        rescaled = False
+        if cfg.pop_rescale:
+            rescaled = self._pop_conservation_rescale() != 1.0
+            density = self.density
+        if cfg.coh_boost_rescale:
+            rescaled |= self._coh_purity_rescale() < 1.0
+            density = self.density
+        if rescaled and cfg.purity_target == "measured":
+            # the caller's target came from the pre-rescale MC purity
+            (mc_pur,) = _pull(torch.sum(OBS.purity_each_element(density)))
+            target_purity = float(mc_pur) * purity_factor(cfg.dim) * self.purity_ratio
         t1 = time.perf_counter()
         energies = OBS.total_energy_each_surface(cfg.model, density, cfg.mass)
         self.optimizer.purity = target_purity
@@ -535,25 +645,35 @@ class GPLEDriver:
         active = density.active.cpu().numpy()
         keys = [self._split() if active[k] else None for k in range(NUM_ELEMENTS)]
         self.gps, self.extra, pop, pur = _reopt_epilogue(
-            cfg.num_extra_points, density, diag_params, off_params, keys,
-            bool(cfg.evolve_cutoff), self._block_diag())
+            cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
+            diag_params, off_params, keys, self._block_diag())
         pop, pur = _pull(pop, pur)
         # coherence fit-health backoff (GPLEConfig.coh_fit_health_factor):
-        # stickily lengthen the coherence lengths while the purity integral
-        # is detached from its target; inert at the default divisor 2
+        # while the purity integral is detached from its target, stickily
+        # halve the coherence divisor (floor 2), then eject the booster; the
+        # retry refits from the extra cloud the previous try regenerated,
+        # with the same keys, as the JAX package does
         hf = float(cfg.coh_fit_health_factor)
-        while (hf > 0.0 and active[OFFDIAG_INDEX] and self._coh_div_eff > 2.0
+        while (hf > 0.0 and active[OFFDIAG_INDEX]
+               and (self._coh_div_eff > 2.0 or self._coh_k > 0)
                and float(pur) > hf * max(float(target_purity), 1e-30)):
-            self._coh_div_eff = max(2.0, self._coh_div_eff / 2.0)
-            self.optimizer.off_len_div = self._coh_div_eff
-            self.stats["coh_len_backoffs"] = self.stats.get("coh_len_backoffs", 0) + 1
-            self._log(f"coherence fit unhealthy (purity {float(pur):.3f} vs target "
-                      f"{target_purity:.3f}): len_div -> {self._coh_div_eff}")
+            if self._coh_div_eff > 2.0:
+                self._coh_div_eff = max(2.0, self._coh_div_eff / 2.0)
+                self.optimizer.off_len_div = self._coh_div_eff
+                self.stats["coh_len_backoffs"] = self.stats.get("coh_len_backoffs", 0) + 1
+                self._log(f"coherence fit unhealthy (purity {float(pur):.3f} vs target "
+                          f"{target_purity:.3f}): len_div -> {self._coh_div_eff}")
+            else:
+                self._coh_k = 0
+                self.optimizer.coh_fit_extra = 0
+                self.stats["coh_boost_ejected"] = self.stats.get("coh_boost_ejected", 0) + 1
+                self._log(f"coherence fit unhealthy at div-2 floor (purity "
+                          f"{float(pur):.3f}): booster EJECTED")
             self.opt_result = self.optimizer.optimize(density, self.extra, energies)
             diag_params, off_params = self.optimizer.fitted_params()
             self.gps, self.extra, pop, pur = _reopt_epilogue(
-                cfg.num_extra_points, density, diag_params, off_params, keys,
-                bool(cfg.evolve_cutoff), self._block_diag())
+                cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
+                diag_params, off_params, keys, self._block_diag())
             pop, pur = _pull(pop, pur)
         self._fit_ref = {"pop": float(pop), "pur": float(pur),
                          "target": max(float(target_purity), 1e-30)}
@@ -573,8 +693,8 @@ class GPLEDriver:
         diag_params, off_params = self.optimizer.fitted_params()
         density, extra, small, new_gps = _tick_core(
             cfg.model, cfg.mass, cfg.dt, self.density, self.extra, self.gps,
-            diag_params, off_params, self._evolve_dist, "none", 0, self._coh_div_eff,
-            self._block_diag())
+            diag_params, off_params, self._evolve_dist, self._track_moments, self._coh_k,
+            self._coh_div_eff, self._block_diag())
         small, old_active, pop, pur, mc_pur = _pull(
             small, density.active, new_gps.population(), new_gps.purity(),
             torch.sum(OBS.purity_each_element(density)))
@@ -607,18 +727,75 @@ class GPLEDriver:
     def _relabel_gps(self, density: Density, extra: Density) -> GPStates:
         """GP states for RELABELING walks only (re-selection / new-element
         seeding): at a coherence divisor above 2 the live fit is near-
-        interpolating, so the same coherence data is refit at the smooth
-        div-2 lengthscale for the relabel queries.  At the default divisor 2
-        these are the live states."""
+        interpolating, so the same coherence data (with the booster points)
+        is refit at the smooth div-2 lengthscale for the relabel queries.  At
+        the default divisor 2 these are the live states."""
         if self._coh_div_eff <= 2.0:
             return self.gps
         live = self.gps.offdiag.params
         scale = self._coh_div_eff / 2.0
         safe = live._replace(real_lengths=live.real_lengths * scale,
                              imag_lengths=live.imag_lengths * scale)
-        off = CK.fit_complex(safe, density.points[OFFDIAG_INDEX],
-                             density.rho[OFFDIAG_INDEX], block_diag=self._block_diag())
+        off_pts, off_rho = density.points[OFFDIAG_INDEX], density.rho[OFFDIAG_INDEX]
+        if self._coh_k > 0:
+            oe_pts, oe_rho = _off_extra_slice(extra, self._coh_k)
+            off_pts, off_rho = torch.cat([off_pts, oe_pts]), torch.cat([off_rho, oe_rho])
+        off = CK.fit_complex(safe, off_pts, off_rho, block_diag=self._block_diag())
         return GPStates(diag=self.gps.diag, offdiag=off, active=self.gps.active)
+
+    #: relabel-continuity factors outside this band mean the relabel query
+    #: itself is corrupt: the re-selection is rejected instead
+    RELABEL_SCALE_BAND = (0.2, 5.0)
+    #: an element whose own integral is below this fraction of the total
+    #: diagonal population numerator is nascent: its relabel is taken unscaled
+    RELABEL_NASCENT_FRAC = 0.05
+
+    def _relabel_scale(self, k: int, rho_old, rho_new, nascent_ref=None):
+        """Continuity factor for a re-selected element's fresh labels, or None
+        to reject the relabel (GPLEConfig.relabel_conserve): the diagonal
+        point sum (sum Re rho) or the coherence's sum |rho|^2 is kept across
+        the re-selection; factors outside :attr:`RELABEL_SCALE_BAND`, sign
+        flips and zero sums reject.  A nascent element (integral -- the L1
+        sum of |rho| for the coherence -- below RELABEL_NASCENT_FRAC of
+        ``nascent_ref``) takes the fresh labels unscaled while they stay
+        within twice that threshold (and, for a diagonal, positive), else it
+        rejects.  ``rho_old`` / ``rho_new``: (N, 2) host arrays or tensors."""
+        old = rho_old.cpu().numpy() if isinstance(rho_old, torch.Tensor) else np.asarray(rho_old)
+        new = rho_new.cpu().numpy() if isinstance(rho_new, torch.Tensor) else np.asarray(rho_new)
+        thresh = (self.RELABEL_NASCENT_FRAC * nascent_ref
+                  if nascent_ref is not None else None)
+        if k == OFFDIAG_INDEX:
+            pre = float(np.sum(old[:, 0] ** 2 + old[:, 1] ** 2))
+            post = float(np.sum(new[:, 0] ** 2 + new[:, 1] ** 2))
+            pre_l1 = float(np.sum(np.sqrt(old[:, 0] ** 2 + old[:, 1] ** 2)))
+            post_l1 = float(np.sum(np.sqrt(new[:, 0] ** 2 + new[:, 1] ** 2)))
+            if thresh is not None and pre_l1 < thresh:
+                if post_l1 <= 2.0 * thresh:
+                    self.stats["relabel_nascent"] = self.stats.get("relabel_nascent", 0) + 1
+                    return 1.0
+                self._log("nascent relabel REJECTED (post integral "
+                          f"{post_l1:.3g} beyond 2x nascent band)")
+                return None
+            if post <= 0.0 or pre <= 0.0:
+                return None
+            s = float(np.sqrt(pre / post))
+        else:
+            pre = float(np.sum(old[:, 0]))
+            post = float(np.sum(new[:, 0]))
+            if thresh is not None and abs(pre) < thresh:
+                if post > 0.0 and post <= 2.0 * thresh:
+                    self.stats["relabel_nascent"] = self.stats.get("relabel_nascent", 0) + 1
+                    return 1.0
+                self._log("nascent relabel REJECTED (post integral "
+                          f"{post:.3g} outside (0, 2x nascent band])")
+                return None
+            if post == 0.0 or pre == 0.0 or (pre > 0) != (post > 0):
+                return None     # a sign flip: the relabel query is corrupt
+            s = pre / post
+        lo, hi = self.RELABEL_SCALE_BAND
+        if not (lo <= s <= hi) or not np.isfinite(s):
+            return None
+        return s
 
     def _walk_surrogate(self, gps, elem: int, density: Density, extra: Density):
         """(walk_fn, walk_params) Metropolis target for ``elem``'s chains (see
@@ -644,21 +821,59 @@ class GPLEDriver:
         Metropolis kernel to the backward-branching predictor's density, which
         has support where transferred mass lands (the reference's mid-run
         seeding machinery, mc.cpp:407-537, applied on drift)."""
-        if not self.cfg.track_clouds:
+        cfg = self.cfg
+        if not cfg.track_clouds:
             return density
         flags = _cloud_drift_flags(density).cpu().numpy()
+        if self._coh_k > 0 and not cfg.coh_reselect:
+            # a live booster keeps its coherence cloud: its points follow
+            # their characteristics and its labels are carried
+            flags[OFFDIAG_INDEX] = False
         if not flags.any():
             return density
         pts = density.points.clone()
         rho = density.rho.clone()
+        changed = False
         relabel_gps = self._relabel_gps(density, self.extra)
         for k in np.nonzero(flags)[0]:
             self._log(f"element {ELEMENTS[k]} cloud re-selected")
             self.stats["cloud_reselections"] += 1
-            walk = self._walk_surrogate(relabel_gps, k, density, self.extra)
-            pts[k], rho[k], self.mc_params[k] = mc.element_monte_carlo(
-                self._split(), self._new_pt_dists[k], relabel_gps, density.points[k],
-                self.mc_params[k], tune=self.cfg.mc_retune, walk=walk)
+            gps_k = relabel_gps
+            if cfg.relabel_mask_coh and k != OFFDIAG_INDEX:
+                # a diagonal relabel with the coherence masked out of the predictor
+                active = relabel_gps.active.clone()
+                active[OFFDIAG_INDEX] = False
+                gps_k = relabel_gps._replace(active=active)
+            walk = self._walk_surrogate(gps_k, k, density, self.extra)
+            p, r, self.mc_params[k] = mc.element_monte_carlo(
+                self._split(), self._new_pt_dists[k], gps_k, density.points[k],
+                self.mc_params[k], tune=cfg.mc_retune, walk=walk)
+            s = 1.0
+            if cfg.relabel_conserve:
+                # the nascent reference: the diagonal point sums as relabeled so far
+                (sums,) = _pull(rho[_DIAG][..., 0].sum(dim=-1))
+                s = self._relabel_scale(k, density.rho[k], r, float(np.sum(np.abs(sums))))
+                if s is None:
+                    # a corrupt relabel: the element keeps its points and labels
+                    self._log(f"element {ELEMENTS[k]} relabel REJECTED "
+                              f"(integral jump outside band)")
+                    self.stats["relabel_rejects"] = self.stats.get("relabel_rejects", 0) + 1
+                    continue
+                r = r * s
+                self.stats["relabel_rescales"] = self.stats.get("relabel_rescales", 0) + 1
+            pts[k], rho[k] = p, r
+            if k == OFFDIAG_INDEX and self._coh_k > 0:
+                # the booster slots take the same walk and the same factor
+                kk = self._coh_k
+                bp, br, _ = mc.element_monte_carlo(
+                    self._split(), self._new_pt_dists[k], relabel_gps,
+                    self.extra.points[k, :kk], self.mc_params[k], tune=False, walk=walk)
+                e_pts, e_rho = self.extra.points.clone(), self.extra.rho.clone()
+                e_pts[k, :kk], e_rho[k, :kk] = bp, br * s
+                self.extra = Density(points=e_pts, rho=e_rho, active=self.extra.active)
+            changed = True
+        if not changed:
+            return density
         return Density(points=pts, rho=rho, active=density.active)
 
     def _element_change(self, density, extra, old_active, new_active):
@@ -667,8 +882,8 @@ class GPLEDriver:
         candidates = torch.cat([density.points.reshape(-1, density.points.shape[-1]),
                                 extra.points.reshape(-1, 2)])
         gps = self._relabel_gps(density, extra)
-        pts = density.points.clone()
-        rho = density.rho.clone()
+        pts, rho = density.points.clone(), density.rho.clone()
+        e_pts, e_rho = extra.points.clone(), extra.rho.clone()
         for k in range(NUM_ELEMENTS):
             if new_active[k] and not old_active[k]:
                 self._log(f"element {ELEMENTS[k]} appears")
@@ -676,12 +891,19 @@ class GPLEDriver:
                 pts[k], rho[k], self.mc_params[k] = mc.seed_new_element(
                     self._split(), candidates, self.cfg.num_points,
                     self._new_pt_dists[k], gps, self.mc_params[k], walk=walk)
+                if k == OFFDIAG_INDEX and self._coh_k > 0:
+                    # seed the booster slots the same way
+                    e_pts[k, :self._coh_k], e_rho[k, :self._coh_k], _ = mc.seed_new_element(
+                        self._split(), candidates, self._coh_k, self._new_pt_dists[k], gps,
+                        self.mc_params[k], walk=walk)
             elif old_active[k] and not new_active[k]:
                 self._log(f"element {ELEMENTS[k]} vanishes")
                 rho[k] = 0.0
+                if k == OFFDIAG_INDEX and self._coh_k > 0:
+                    e_rho[k, :self._coh_k] = 0.0
         active = torch.tensor(new_active, device=self.device)
         return (Density(points=pts, rho=rho, active=active),
-                Density(points=extra.points, rho=extra.rho, active=active))
+                Density(points=e_pts, rho=e_rho, active=active))
 
     # -- observation / output ---------------------------------------------------------
     @torch.inference_mode()

@@ -15,6 +15,8 @@ for :class:`gple_tpu_torch.driver.GPLEDriver`, and :func:`crossing_config`
 the crossing-region regression trajectory of ``tests/test_crossing.py``;
 :func:`crossing_dvr_config` is the exact DVR oracle's configuration of the
 same physics, whose populations the crossing trajectory is held against.
+:func:`booster_config` runs the crossing physics with the coherence booster
+and every other default-off flag of the driver.
 """
 
 from __future__ import annotations
@@ -112,3 +114,17 @@ def crossing_dvr_config() -> DVRConfig:
     return DVRConfig(model=cfg.model, boundary="reflective", mass=cfg.mass, x0=cfg.x0,
                      p0=cfg.p0, sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax,
                      dx_input=1.0, output_time=cfg.output_time, dt_input=cfg.dt)
+
+
+def booster_config(n_points: int = 1024, seed: int = 0) -> GPLEConfig:
+    """The crossing physics (SAC from x0 = -2 at p0 = 20, sigma_p0 = 1, dt 1,
+    an output and a reoptimization every 10 ticks) with every default-off
+    flag of the coherence booster: ``n_points`` extra points join the
+    coherence fit at coherence divisor 6, per-tick tracking of the coherence,
+    the coherence-only cutoff, both conservation rescales, the conserving and
+    masked relabel, and the coherence cloud frozen while the booster lives."""
+    return GPLEConfig(model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0,
+                      output_time=10.0, reopt_time=10.0, dt=1.0, num_points=n_points,
+                      seed=seed, coh_fit_extra=n_points, coh_len_div=6.0, moment_per_tick="off",
+                      evolve_cutoff="coh", coh_boost_rescale=True, pop_rescale=True,
+                      relabel_conserve=True, relabel_mask_coh=True, coh_reselect=False)

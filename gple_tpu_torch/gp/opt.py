@@ -13,19 +13,31 @@
   ``local_initial`` -> ``global``, a Halton sweep) accepted by the 5%
   ``check_averages`` rule and ``compare_and_overwrite``.
 
-The inner solver is the JAX package's fixed-fan L-BFGS (``_lbfgs_fixed_fan``,
-the branch its ``_lbfgs_scan`` takes on an accelerator) on every device: a
-two-loop recursion and a line search over a fixed fan of step scales whose
-candidates are ONE batched fit (a leading batch axis on every loss), with no
-data-dependent control flow, so no step waits for the host.  Gradients come
-from ``torch.autograd`` through the Cholesky and the kernels' autograd
-Functions (``gram_kernels.RBFGram`` / ``RBFPredictMean``).  Not ported: the
-JAX CPU branch ``_lbfgs_zoom`` (optax's zoom line search, a data-dependent
-loop) and the host pinning ``Optimizer.device="cpu"`` of the JAX package.
+The inner solver is chosen by :func:`_lbfgs_scan`'s ``line_search``:
+
+* ``"zoom"`` (the default on every device) is :func:`_lbfgs_zoom`, optax
+  0.2.6's ``lbfgs()`` -- memory 10, the scaled initial preconditioner and
+  the zoom line search (Nocedal & Wright 3.5/3.6 with Hager-Zhang's
+  approximate-Wolfe test) -- translated formula for formula.  It is the
+  branch the JAX package's ``_lbfgs_scan`` takes on the CPU, where its
+  ``Optimizer.device="cpu"`` pins the ladder, so the JAX ladder always runs
+  it.  Its loop is data dependent: the line search's scalars live on the
+  host and every loss evaluation costs one device-to-host pull
+  (:data:`ZOOM_COUNTS` counts them).
+* ``"fan"`` is :func:`_lbfgs_fixed_fan`, the JAX package's accelerator
+  branch: a two-loop recursion and a line search over a fixed fan of step
+  scales whose candidates are ONE batched fit (a leading batch axis on every
+  loss), with no data-dependent control flow, so no step waits for the host.
+
+Gradients come from ``torch.autograd`` through the Cholesky and the kernels'
+autograd Functions (``gram_kernels.RBFGram`` / ``RBFPredictMean``).
 
 The optimizer runs on the device of the data it is given.  Its parameter
 state stays on the host as numpy arrays, as in the JAX package;
 :meth:`Optimizer.fitted_params` builds the tensors the fit reads.
+:func:`moment_kernel_params` is the per-tick moment tracking
+(``GPLEConfig.moment_per_tick``) and ``Optimizer.coh_fit_extra`` the
+booster's share of the moment statistics.
 """
 
 from __future__ import annotations
@@ -78,6 +90,42 @@ def _wstd(points, weights):
     mu = (points.T @ w) / torch.sum(w)
     var = (((points - mu) ** 2).T @ w) / torch.sum(w)
     return torch.sqrt(torch.clamp(var, min=MIN_CHAR_LENGTH**2))
+
+
+def moment_kernel_params(density: Density, prev_diag: "RK.KernelParams",
+                         prev_off: "CK.ComplexKernelParams", off_extra=None,
+                         off_len_div: float = 2.0, track_diag: bool = True):
+    """The moment parameters of the current cloud, on the device
+    (``gple_tpu/gp/opt.py:87-137``): the per-tick tracking of
+    ``GPLEConfig.moment_per_tick``.  Diagonal lengths (``track_diag``) are
+    the |label|-weighted cloud std / 2 of each active element; the coherence
+    lengths the weighted std of its cloud -- with the booster points
+    ``off_extra = (points (k, D), rho (k, 2))`` joined -- over
+    ``off_len_div``, its sub-kernel magnitudes the label RMS.  Magnitudes,
+    noise and corr carry over from ``prev``, as do inactive elements'
+    parameters."""
+    if track_diag:
+        lens = torch.stack([_wstd(density.points[k], density.rho[k, :, 0])
+                            for k in DIAG_INDICES]) / 2.0
+        diag = prev_diag._replace(lengths=torch.where(
+            density.active[_DIAG][:, None], lens, prev_diag.lengths))
+    else:
+        diag = prev_diag
+    o_pts, o_rho = density.points[OFFDIAG_INDEX], density.rho[OFFDIAG_INDEX]
+    if off_extra is not None:
+        o_pts = torch.cat([o_pts, off_extra[0]])
+        o_rho = torch.cat([o_rho, off_extra[1]])
+    lr = _wstd(o_pts, o_rho[:, 0]) / off_len_div
+    li = _wstd(o_pts, o_rho[:, 1]) / off_len_div
+    mr = torch.sqrt(torch.mean(o_rho[:, 0] ** 2)) + 1e-30
+    mi = torch.sqrt(torch.mean(o_rho[:, 1] ** 2)) + 1e-30
+    act = density.active[OFFDIAG_INDEX]
+    off = prev_off._replace(
+        real_magnitude=torch.where(act, mr, prev_off.real_magnitude),
+        real_lengths=torch.where(act, lr, prev_off.real_lengths),
+        imag_magnitude=torch.where(act, mi, prev_off.imag_magnitude),
+        imag_lengths=torch.where(act, li, prev_off.imag_lengths))
+    return diag, off
 
 
 def _sigmoid_to_bounds(z, lb, ub):
@@ -255,9 +303,237 @@ def _lbfgs_fixed_fan(fn, z0, steps: int):
     return z.reshape(shape)
 
 
+#: optax 0.2.6 ``lbfgs()`` as the JAX package builds it (``alias.py:2591-2600``,
+#: ``linesearch.py:1331``): history 10, the zoom line search with at most 20
+#: steps, its sufficient-decrease / curvature / approximate-decrease
+#: tolerances, the interval below which a decreasing step is taken, and the
+#: interval search's growth factor
+ZOOM_MEMORY = 10
+ZOOM_LINESEARCH_STEPS = 20
+ZOOM_SLOPE_RTOL = 1e-4
+ZOOM_CURV_RTOL = 0.9
+ZOOM_APPROX_DEC_RTOL = 1e-6
+ZOOM_STEPSIZE_PRECISION = 1e-5
+ZOOM_INCREASE_FACTOR = 2.0
+#: the zoom solve stops when the sup-norm of the L-BFGS update falls below this
+ZOOM_XTOL = 1e-7
+#: running totals of the zoom: solves, L-BFGS iterations, loss evaluations
+#: (value and gradient) and device-to-host pulls
+ZOOM_COUNTS = {"solves": 0, "iterations": 0, "evaluations": 0, "syncs": 0}
+
+_f = np.float64
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Critical point of the cubic through (a, fa), (b, fb), (c, fc) with
+    slope fpa at a (optax ``_cubicmin``); NaN where there is none."""
+    C = fpa
+    db = b - a
+    dc = c - a
+    dbdc = db * dc
+    denom = dbdc * dbdc * (db - dc)
+    u = fb - fa - C * db
+    v = fc - fa - C * dc
+    A = (dc * dc * u + -(db * db) * v) / denom
+    B = (-(dc * (dc * dc)) * u + db * (db * db) * v) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Critical point of the quadratic through (a, fa), (b, fb) with slope
+    fpa at a (optax ``_quadmin``)."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def _decrease_error(step, value, slope, value_init, slope_init):
+    """Armijo error, or Hager-Zhang's approximate one near the minimum; 0 when
+    satisfied, inf for NaN (optax ``_compute_decrease_error``)."""
+    armijo = value - value_init - ZOOM_SLOPE_RTOL * step * slope_init
+    approx = slope - (2 * ZOOM_SLOPE_RTOL - 1.0) * slope_init
+    approx = np.maximum(approx, value - value_init - ZOOM_APPROX_DEC_RTOL * np.abs(value_init))
+    err = np.maximum(np.minimum(approx, armijo), 0.0)
+    return _f(np.inf) if np.isnan(err) else err
+
+
+def _curvature_error(slope, slope_init):
+    err = np.maximum(np.abs(slope) - ZOOM_CURV_RTOL * np.abs(slope_init), 0.0)
+    return _f(np.inf) if np.isnan(err) else err
+
+
+def _lbfgs_zoom(fn, z0, steps: int):
+    """optax's ``lbfgs()`` with its zoom line search, run as the JAX
+    package's ``_lbfgs_zoom`` runs it: at most ``steps`` iterations, stopping
+    once the sup-norm of the update is at most :data:`ZOOM_XTOL`, with NaNs
+    of the gradient and the update zeroed.
+
+    ``fn`` maps a batch ``(1,) + z0.shape`` to ``(1,)`` losses.  The L-BFGS
+    memory and every vector stay on the device; the line search's scalars
+    (values, slopes, step sizes) are numpy float64 on the host, one pull per
+    loss evaluation plus one per iteration.  The interval search, the
+    cubic / quadratic / bisection choice, the safeguarded step and the
+    approximate-Wolfe test follow ``optax/_src/linesearch.py`` formula for
+    formula."""
+    shape = z0.shape
+    z = z0.detach().reshape(-1)
+    d = z.shape[0]
+    m = ZOOM_MEMORY
+    f64 = dict(dtype=z.dtype, device=z.device)
+    dw = torch.zeros((m, d), **f64)      # parameter differences
+    du = torch.zeros((m, d), **f64)      # gradient differences
+    rhos = torch.zeros((m,), **f64)
+    prev_z, prev_g = z, z
+    counts = ZOOM_COUNTS
+    counts["solves"] += 1
+
+    def value_grad(zz):
+        zz = zz.detach().requires_grad_(True)
+        with torch.enable_grad():
+            value = fn(zz.reshape((1,) + shape))[0]
+            (grad,) = torch.autograd.grad(value, zz, allow_unused=True)
+        counts["evaluations"] += 1
+        return value.detach(), torch.zeros_like(zz) if grad is None else grad
+
+    def pull(*scalars):
+        counts["syncs"] += 1
+        return [_f(v) for v in torch.stack(scalars).tolist()]
+
+    value, grad = _f(np.inf), None       # the line search's last value and gradient
+    count, it, dz = 0, 0, np.inf
+    while it < steps and dz > ZOOM_XTOL:
+        fresh = not np.isfinite(value)
+        if fresh:
+            value_t, grad = value_grad(z)
+        grad = torch.nan_to_num(grad)
+        # -- scale_by_lbfgs: store the newest pair, then the two-loop product
+        if count > 0:
+            s, y = z - prev_z, grad - prev_g
+            sy = torch.dot(y, s)
+            i = (count - 1) % m
+            dw[i], du[i] = s, y
+            rhos[i] = torch.where(sy == 0.0, 0.0, 1.0 / sy)
+            yy = torch.dot(y, y)
+            gamma = torch.where(yy > 0.0, sy / yy, 1.0)
+        else:
+            gamma = torch.clamp(1.0 / torch.sqrt(torch.dot(grad, grad)), max=1.0)
+        order = [(count + j) % m for j in range(m)]
+        vec, alphas = grad, [None] * m
+        for j in reversed(range(m)):
+            i = order[j]
+            alphas[j] = rhos[i] * torch.dot(dw[i], vec)
+            vec = vec - alphas[j] * du[i]
+        vec = gamma * vec
+        for j in range(m):
+            i = order[j]
+            vec = vec + (alphas[j] - rhos[i] * torch.dot(du[i], vec)) * dw[i]
+        count += 1
+        prev_z, prev_g = z, grad
+        u = -vec
+        scalars = [torch.dot(u, grad), torch.amax(torch.abs(torch.nan_to_num(u)))]
+        if fresh:
+            value, slope0, umax = pull(value_t, *scalars)
+        else:
+            slope0, umax = pull(*scalars)
+
+        # -- the zoom line search along u
+        def on_line(step):
+            v, g = value_grad(z + float(step) * u)
+            vh, sh = pull(v, torch.dot(g, u))
+            return vh, g, sh
+
+        v0 = value
+        step, cur_v, cur_g, cur_s = _f(0.0), v0, grad, slope0
+        found = done = failed = False
+        low, v_low, s_low = _f(0.0), v0, slope0
+        high, v_high = _f(0.0), v0      # (optax's slope at high is never read)
+        cref, v_cref = _f(0.0), v0
+        safe, v_safe, g_safe = _f(0.0), v0, grad
+        ls = 0
+        with np.errstate(all="ignore"):
+            while not (done or failed):
+                if not found:
+                    # interval search (Nocedal & Wright 3.5)
+                    new = _f(1.0) if ls == 0 else ZOOM_INCREASE_FACTOR * step
+                    nv, ng, ns = on_line(new)
+                    de = _decrease_error(new, nv, ns, v0, slope0)
+                    err = np.maximum(de, _curvature_error(ns, slope0))
+                    if de <= 0.0:
+                        safe, v_safe, g_safe = new, nv, ng
+                    set_high = bool(de > 0.0) or (bool(nv >= cur_v) and ls > 0)
+                    if bool(ns >= 0.0) and not set_high:
+                        low, v_low, s_low, high, v_high = new, nv, ns, step, cur_v
+                        found = True
+                    else:
+                        low, v_low, s_low, high, v_high = step, cur_v, cur_s, new, nv
+                        found = set_high
+                    done = bool(err <= 0.0)
+                    found = found or done
+                    failed = ls + 1 >= ZOOM_LINESEARCH_STEPS and not done
+                    cref, v_cref = low, v_low
+                else:
+                    # zoom into [low, high] (Nocedal & Wright 3.6)
+                    delta = np.abs(high - low)
+                    left, right = np.minimum(high, low), np.maximum(high, low)
+                    mid = _cubicmin(low, v_low, s_low, high, v_high, cref, v_cref)
+                    if not (mid > left + 0.2 * delta and mid < right - 0.2 * delta):
+                        mid = _quadmin(low, v_low, s_low, high, v_high)
+                        if not (mid > left + 0.1 * delta and mid < right - 0.1 * delta):
+                            mid = (low + high) / 2.0
+                    nv, ng, ns = on_line(mid)
+                    new = mid
+                    de = _decrease_error(mid, nv, ns, v0, slope0)
+                    err = np.maximum(de, _curvature_error(ns, slope0))
+                    if de <= 0.0 and nv < v_safe:
+                        safe, v_safe, g_safe = mid, nv, ng
+                    done = bool(err <= 0.0)
+                    high_to_mid = bool(de > 0.0) or bool(nv >= v_low)
+                    high_to_low = bool(ns * (high - low) >= 0.0) and not high_to_mid
+                    if high_to_mid or high_to_low:
+                        cref, v_cref = high, v_high
+                    else:
+                        cref, v_cref = low, v_low
+                    if high_to_mid:
+                        high, v_high = mid, nv
+                    else:
+                        if high_to_low:
+                            high, v_high = low, v_low
+                        low, v_low, s_low = mid, nv, ns
+                    failed = (ls + 1 >= ZOOM_LINESEARCH_STEPS
+                              or (delta <= ZOOM_STEPSIZE_PRECISION and safe > 0.0)) and not done
+                step, cur_v, cur_g, cur_s, dec_err = new, nv, ng, ns, de
+                ls += 1
+                if failed and (safe > 0.0 or np.isinf(dec_err)):
+                    # the safeguarded step: the best sufficient decrease found
+                    step, cur_v, cur_g = safe, v_safe, g_safe
+        value, grad = cur_v, cur_g
+        z = z + float(step) * u
+        dz = float(np.abs(step) * umax)
+        it += 1
+        counts["iterations"] += 1
+    return z.reshape(shape)
+
+
+#: the inner solvers :func:`_lbfgs_scan` selects between
+LINE_SEARCHES = ("zoom", "fan")
+
+
+def _lbfgs_scan(fn, z0, steps: int, line_search: str = "zoom"):
+    """The bounded L-BFGS inner solver: ``"zoom"`` (:func:`_lbfgs_zoom`, the
+    JAX package's CPU branch and its ladder's default) or ``"fan"``
+    (:func:`_lbfgs_fixed_fan`, its accelerator branch)."""
+    if line_search == "zoom":
+        return _lbfgs_zoom(fn, z0, steps)
+    if line_search == "fan":
+        return _lbfgs_fixed_fan(fn, z0, steps)
+    raise ValueError(f"_lbfgs_scan: unknown line_search {line_search!r}")
+
+
 # -- one stage of the ladder -----------------------------------------------------------
 
-def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int):
+def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int,
+                 line_search: str = "zoom"):
     """Augmented-Lagrangian outer loop: ``al_outer`` L-BFGS solves of
     loss + lam.c + mu/2 |c|^2, each followed by lam += mu c, mu *= growth.
     Returns (z, lam)."""
@@ -267,7 +543,7 @@ def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int):
             loss, cons = loss_and_cons(zz)
             return loss + torch.sum(lam * cons, dim=-1) + 0.5 * mu * torch.sum(cons**2, dim=-1)
 
-        z = _lbfgs_fixed_fan(objective, z, lbfgs_steps)
+        z = _lbfgs_scan(objective, z, lbfgs_steps, line_search)
         with torch.no_grad():
             _, cons = loss_and_cons(z)
         lam, mu = lam + mu * cons, mu * AL_MU_GROWTH
@@ -275,11 +551,12 @@ def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int):
 
 
 def _run_stage(start_diag, start_off, lam0, data, off_active: bool,
-               lbfgs_steps: int, al_outer: int):
+               lbfgs_steps: int, al_outer: int, line_search: str = "zoom"):
     """One complete do_optimize pass (opt.cpp:1101-1198): elementwise fits,
     then the constrained diagonal pass, then (when the coherence is active)
     the constrained full pass.  ``lam0``: (2, 3) warm-start multipliers of
-    the (diagonal, full) passes, zeros for a cold start.
+    the (diagonal, full) passes, zeros for a cold start; ``line_search``
+    the inner solver (:func:`_lbfgs_scan`).
 
     Returns (diag_lengths, off_flat, error, raw averages (3,), lam_out (2, 3))
     as device tensors."""
@@ -289,12 +566,12 @@ def _run_stage(start_diag, start_off, lam0, data, off_active: bool,
 
     # 1. elementwise unconstrained minimization
     zd = _bounds_to_sigmoid(start_diag, dlb, dub)
-    zd = _lbfgs_fixed_fan(lambda z: _diag_loss(_sigmoid_to_bounds(z, dlb, dub), data),
-                          zd, lbfgs_steps)
+    zd = _lbfgs_scan(lambda z: _diag_loss(_sigmoid_to_bounds(z, dlb, dub), data),
+                     zd, lbfgs_steps, line_search)
     zo = _bounds_to_sigmoid(start_off, olb, oub)
     if off_active:
-        zo = _lbfgs_fixed_fan(lambda z: _off_loss(_sigmoid_to_bounds(z, olb, oub), data),
-                              zo, lbfgs_steps)
+        zo = _lbfgs_scan(lambda z: _off_loss(_sigmoid_to_bounds(z, olb, oub), data),
+                         zo, lbfgs_steps, line_search)
 
     # 2. constrained passes; the constraints are RELATIVE violations
     # (avgs / target - 1), so one penalty scale fits population, energy and
@@ -308,7 +585,8 @@ def _run_stage(start_diag, start_off, lam0, data, off_active: bool,
         cons = ((avgs - targets) / cons_scale)[..., :n_cons_diag]
         return _diag_loss_from_states(states, data), cons
 
-    zd, lam_diag = _al_minimize(zd, diag_lc, lam0[0][:n_cons_diag], lbfgs_steps, al_outer)
+    zd, lam_diag = _al_minimize(zd, diag_lc, lam0[0][:n_cons_diag], lbfgs_steps, al_outer,
+                                line_search)
     lam_full = lam0[1][:3]
 
     if off_active:
@@ -324,7 +602,8 @@ def _run_stage(start_diag, start_off, lam0, data, off_active: bool,
                     + _off_loss_from_state(ostate, data))
             return loss, (avgs - targets) / cons_scale
 
-        zall, lam_full = _al_minimize(zall, full_lc, lam0[1], lbfgs_steps, al_outer)
+        zall, lam_full = _al_minimize(zall, full_lc, lam0[1], lbfgs_steps, al_outer,
+                                      line_search)
         zd = zall[:nd].reshape(zd.shape)
         zo = zall[nd:]
 
@@ -444,6 +723,12 @@ class Optimizer:
     opt_mode: str = "moment"
     #: coherence lengthscale divisor (off lengths = weighted std / off_len_div)
     off_len_div: float = 2.0
+    #: moment mode: the first ``coh_fit_extra`` off-diagonal extra points join
+    #: the coherence's moment statistics, as they join its fit (the booster,
+    #: GPLEConfig.coh_fit_extra)
+    coh_fit_extra: int = 0
+    #: the ladder's inner solver (:func:`_lbfgs_scan`): "zoom" or "fan"
+    line_search: str = "zoom"
     #: device of the tensors :meth:`fitted_params` builds (set by each
     #: :meth:`optimize` to the data's device)
     device: "str | torch.device" = "cuda"
@@ -520,7 +805,10 @@ class Optimizer:
         self.device = density.points.device
         if self.opt_mode == "moment":
             data, active = self._pack_data(density, extra, surface_energies)
-            return self._moment_impl(density, data, active)
+            k = min(int(self.coh_fit_extra), extra.points.shape[1])
+            off_extra = ((extra.points[OFFDIAG_INDEX, :k], extra.rho[OFFDIAG_INDEX, :k])
+                         if k > 0 else None)
+            return self._moment_impl(density, data, active, off_extra)
         if self.opt_mode != "ladder":
             raise ValueError(f"Optimizer: unknown opt_mode {self.opt_mode!r}")
         with torch.inference_mode(False), torch.enable_grad():
@@ -540,23 +828,27 @@ class Optimizer:
             # the warm stage reuses the previous reopt's converged multipliers
             # and spends half the outer updates; cold restarts start from zero
             t0 = time.perf_counter()
+            zoom0 = dict(ZOOM_COUNTS)
             warm = tag == "local_previous" and self._al_lam is not None
             lam0 = torch.tensor(self._al_lam if warm else np.zeros((2, 3)), **f64)
             out = _run_stage(torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64),
                              lam0, data, off_active, self.lbfgs_steps,
-                             AL_OUTER // 2 if warm else AL_OUTER)
+                             AL_OUTER // 2 if warm else AL_OUTER, self.line_search)
             dl, of, err, avgs, lam = _host(*out)
             return dict(diag_lengths=dl, off_params=of, error=float(err),
                         check=self._check_averages(avgs, off_active), tag=tag, lam=lam,
-                        averages=avgs, seconds=time.perf_counter() - t0)
+                        averages=avgs, seconds=time.perf_counter() - t0,
+                        zoom={k: ZOOM_COUNTS[k] - zoom0[k] for k in zoom0})
 
         # clip starts into the current bounds (move_into_bounds, opt.cpp:1054-1067)
         def clipped(diag, off):
             return (np.clip(diag, bounds["dlb"], bounds["dub"]),
                     np.clip(off, bounds["olb"], bounds["oub"]))
 
-        #: the stages of this call, in order: their results, constraint checks
-        #: and host walls (each ends with the pull of its results)
+        #: the stages of this call, in order: their results, constraint checks,
+        #: host walls (each ends with the pull of its results) and the zoom's
+        #: counts (solves, iterations, loss evaluations, host pulls; zeros
+        #: under the fan)
         self.stages = []
         res = run(*clipped(self.diag_lengths, self.off_params), "local_previous")
         self.stages.append(res)
@@ -580,8 +872,9 @@ class Optimizer:
         return self._finish(dict(res, mags=mags, off_mag=float(off_mag)), active)
 
     # -- moment-based hyperparameters (opt_mode="moment") ---------------------------
-    def _moment_impl(self, density: Density, data, active) -> OptResult:
-        """Moment-based hyperparameters: no search, no constraints.  The new
+    def _moment_impl(self, density: Density, data, active, off_extra=None) -> OptResult:
+        """Moment-based hyperparameters: no search, no constraints; the
+        booster points ``off_extra`` join the coherence's statistics.  The new
         parameters, the error and the magnitudes reach the host in one pull."""
         pts, rho = density.points, density.rho
         f64 = dict(dtype=pts.dtype, device=pts.device)
@@ -591,6 +884,9 @@ class Optimizer:
                 diag[d] = _wstd(pts[k], rho[k, :, 0]) / 2.0
         if active[OFFDIAG_INDEX]:
             o, orho = pts[OFFDIAG_INDEX], rho[OFFDIAG_INDEX]
+            if off_extra is not None:
+                o = torch.cat([o, off_extra[0]])
+                orho = torch.cat([orho, off_extra[1]])
             lr = _wstd(o, orho[:, 0]) / self.off_len_div
             li = _wstd(o, orho[:, 1]) / self.off_len_div
             mr = torch.sqrt(torch.mean(orho[:, 0] ** 2)) + 1e-30

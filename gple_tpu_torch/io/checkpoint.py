@@ -6,8 +6,9 @@ labels, active flags, the extra clouds), the optimizer's parameters and
 analytic magnitudes, the ladder's warm augmented-Lagrangian multipliers
 ``al_lam`` (a (0,) array before the first reoptimization), the Metropolis
 tuning, the conserved targets, the tick, the last optimizer result, the
-coherence divisor of the fit-health backoff, the booster size ``coh_k``
-(always 0 here: the booster is not ported) and the population numerator
+coherence divisor of the fit-health backoff, the live booster size ``coh_k``
+(0 when off or ejected; its carried points are the first ``coh_k``
+coherence rows of the extra cloud) and the population numerator
 ``pop_sum0``.
 
 The random key.  The JAX package stores its ``jax.random`` key, a
@@ -83,7 +84,7 @@ def save_checkpoint(path: str, driver, tick: int) -> None:
         opt_error=float(driver.opt_result.error),
         opt_type=str(driver.opt_result.opt_type),
         coh_div_eff=float(driver._coh_div_eff),
-        coh_k=0,
+        coh_k=int(driver._coh_k),
         pop_sum0=float(driver._pop_sum0),
     )
 
@@ -98,10 +99,6 @@ def load_checkpoint(path: str, driver) -> int:
         return torch.tensor(np.asarray(a), device=dev)
 
     with np.load(path) as z:
-        if "coh_k" in z and int(z["coh_k"]) > 0:
-            raise NotImplementedError("load_checkpoint: the checkpoint carries a coherence "
-                                      "booster (coh_k > 0), which is not ported (ROADMAP "
-                                      "Queue A item 13)")
         driver.rng = RandomKeys(seed_from_key(z["key"]), dev)
         active = t(z["active"])
         driver.density = Density(points=t(z["points"]), rho=t(z["rho"]), active=active)
@@ -117,7 +114,7 @@ def load_checkpoint(path: str, driver) -> int:
             diag_magnitudes=np.array(z["diag_magnitudes"]),
             off_magnitude=float(z["off_magnitude"]), lbfgs_steps=cfg.opt_steps_reopt,
             corr_bounds=driver._corr_bounds(), opt_mode=cfg.opt_mode,
-            off_len_div=cfg.coh_len_div, device=dev)
+            off_len_div=cfg.coh_len_div, coh_fit_extra=driver._coh_k, device=dev)
         driver.mc_params = [MCParameters(num_steps=int(s), displacement=float(d))
                             for s, d in zip(z["mc_steps"], z["mc_displacements"])]
         if "al_lam" in z and z["al_lam"].size:
@@ -125,6 +122,9 @@ def load_checkpoint(path: str, driver) -> int:
         if "coh_div_eff" in z:
             driver._coh_div_eff = float(z["coh_div_eff"])
             driver.optimizer.off_len_div = driver._coh_div_eff
+        if "coh_k" in z:
+            driver._coh_k = int(z["coh_k"])
+            driver.optimizer.coh_fit_extra = driver._coh_k
         if "pop_sum0" in z and float(z["pop_sum0"]) != 0.0:
             driver._pop_sum0 = float(z["pop_sum0"])
         else:

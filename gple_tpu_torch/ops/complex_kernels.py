@@ -17,8 +17,11 @@ predict is ONE ``predict_mean_rbf`` launch (see :func:`complex_mean`).
 
 Both fits are ported: the block-diagonal (corr = 0) path of the production
 step, two (N, N) SPD inverses, and the full 2N embedding of any corr, one
-(2N, 2N) SPD inverse of M = [[K + R, C], [C, K - R]].  The chirp estimate
-(``estimate_chirp``) is not: ``chirp=True`` raises ``NotImplementedError``.
+(2N, 2N) SPD inverse of M = [[K + R, C], [C, K - R]].  Either fit takes
+``chirp=True``: the labels are demodulated by the fringe wavevector of
+:func:`estimate_chirp` (plain torch: an (N, N) distance matrix and an
+argmin, no kernel), the envelope is fitted, and the predictions are
+remodulated by the stored ``chirp_k``.
 The optimizer's ``extra_set_error_complex`` is the fused mean
 (:func:`complex_mean`), one launch for the 5N extra points.
 
@@ -188,6 +191,37 @@ class ComplexTrainState(NamedTuple):
                          dim=-2)
 
 
+def estimate_chirp(features, labels_ri):
+    """|label|-weighted least-squares estimate of the local fringe
+    wavevector k of an (N, 2) RI field on (N, D) features, without phase
+    unwrapping (``gple_tpu/ops/complex_kernels.py:166-205``): for
+    y = A e^{i k.r}, angle(y_i conj(y_j)) = k . (r_i - r_j) for each point's
+    nearest neighbour j in the std-normalized metric, solved as a D x D
+    weighted least squares, three passes each measuring the residual
+    increment after demodulating the current estimate.  All-zero labels give
+    k = 0 through the ridge term."""
+    r = features
+    amp = ri.absval(labels_ri)
+    scale = torch.std(r, dim=0, correction=0) + 1e-30
+    z = r / scale
+    d2 = torch.sum((z[:, None, :] - z[None, :, :]) ** 2, dim=-1)
+    eye = torch.eye(r.shape[0], dtype=r.dtype, device=r.device)
+    j = torch.argmin(d2 + eye * 1e30, dim=1)
+    dr = r - r[j]
+    w = amp * amp[j]
+    a = torch.einsum("n,ni,nj->ij", w, dr, dr) + 1e-12 * torch.eye(
+        r.shape[-1], dtype=r.dtype, device=r.device)
+    k = torch.zeros(r.shape[-1], dtype=r.dtype, device=r.device)
+    for _ in range(3):
+        y = ri.phase_mul(labels_ri, -(r @ k))
+        yj = y[j]
+        re = y[..., 0] * yj[..., 0] + y[..., 1] * yj[..., 1]
+        im = y[..., 1] * yj[..., 0] - y[..., 0] * yj[..., 1]
+        b = torch.einsum("n,ni,n->i", w, dr, torch.atan2(im, re))
+        k = k + torch.linalg.solve(a, b)
+    return k
+
+
 def fit_complex(params: ComplexKernelParams, features, labels,
                 chirp: bool = False, w_warm=None,
                 block_diag: bool = False) -> ComplexTrainState:
@@ -211,12 +245,16 @@ def fit_complex(params: ComplexKernelParams, features, labels,
 
 
 def _rescaled_labels(features, labels, chirp: bool):
-    """(rescale (...), rescaled labels, chirp_k (D,)): max |label| -> 10."""
-    if chirp:
-        raise NotImplementedError("fit_complex: chirp=True (estimate_chirp) is not ported")
+    """(rescale (...), rescaled labels, chirp_k (D,)): max |label| -> 10;
+    with ``chirp`` (unbatched) the labels demodulated by
+    :func:`estimate_chirp` of the rescaled labels, else chirp_k = 0."""
     rescale = RESCALE_MAXIMUM / torch.clamp(torch.amax(ri.absval(labels), dim=-1), min=1e-30)
-    chirp_k = torch.zeros(features.shape[-1], dtype=features.dtype, device=features.device)
-    return rescale, labels * _sc(rescale), chirp_k
+    y = labels * _sc(rescale)
+    if not chirp:
+        return rescale, y, torch.zeros(features.shape[-1], dtype=features.dtype,
+                                       device=features.device)
+    chirp_k = estimate_chirp(features, y)
+    return rescale, ri.phase_mul(y, -(features @ chirp_k)), chirp_k
 
 
 def finish_complex_fit(params: ComplexKernelParams, features, labels,

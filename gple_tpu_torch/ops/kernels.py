@@ -46,6 +46,20 @@ class KernelParams(NamedTuple):
     lengths: torch.Tensor     # (..., PhaseDim) or (..., PhaseDim, PhaseDim)
     noise: torch.Tensor       # (...) relative noise sigma_n
 
+    def to_flat(self) -> torch.Tensor:
+        """(magnitude, lengths, noise) along the last axis, for vector lengths."""
+        ref = self.lengths
+
+        def one(v):
+            return torch.as_tensor(v, dtype=ref.dtype, device=ref.device).expand(
+                ref.shape[:-1])[..., None]
+
+        return torch.cat([one(self.magnitude), ref, one(self.noise)], dim=-1)
+
+    @classmethod
+    def from_flat(cls, flat: torch.Tensor) -> "KernelParams":
+        return cls(magnitude=flat[..., 0], lengths=flat[..., 1:-1], noise=flat[..., -1])
+
 
 def _col(s):
     """A per-batch scalar broadcast against (..., N, M) matrices."""

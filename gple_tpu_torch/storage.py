@@ -12,9 +12,11 @@ sub-grams -- in ONE ``gram_rbf`` launch.  The block-diagonal production path
 (corr = 0) solves its four (N, N) SPD systems as one batched Cholesky; the
 full path (any corr: the constrained ladder, ``reference_parity``) solves the
 two diagonal systems as one batched Cholesky and the coherence's (2N, 2N)
-embedding as another.  The coherence booster (``off_extra``) is not ported.
-The JAX package's ``GPLE_BATCHED_NS`` environment switch selected between TPU
-inverse chains and is not carried over.
+embedding as another.  With the coherence booster (``off_extra``, k points)
+the coherence is fitted on N + k points: its three sub-grams are a second
+launch and its systems a second batched Cholesky.  The JAX package's
+``GPLE_BATCHED_NS`` environment switch selected between TPU inverse chains
+and is not carried over.
 """
 
 from __future__ import annotations
@@ -62,6 +64,16 @@ class Density(NamedTuple):
         """Host-side complex numpy view (for analysis and tests)."""
         r = self.rho.detach().cpu().numpy()
         return r[..., 0] + 1.0j * r[..., 1]
+
+
+def make_density(num_points: int, r0, active, dtype=torch.float64, device="cuda") -> Density:
+    """Seed every element with ``num_points`` copies of r0 and zero labels
+    (main.cpp:44-56)."""
+    r0 = torch.as_tensor(r0, dtype=dtype, device=device)
+    pts = r0[None, None, :].repeat(NUM_ELEMENTS, num_points, 1)
+    rho = torch.zeros((NUM_ELEMENTS, num_points, 2), dtype=dtype, device=device)
+    return Density(points=pts, rho=rho,
+                   active=torch.as_tensor(active, dtype=torch.bool, device=device))
 
 
 class GPStates(NamedTuple):
@@ -112,25 +124,33 @@ def fit_gp_states(
     off-diagonal corr parameter is 0, so the complex fit splits into two
     (N, N) blocks; otherwise the coherence is fitted through its full (2N, 2N)
     embedding, warm-started from ``prev.offdiag.augmented_inverse()``.
-    ``off_extra`` must be None."""
-    if off_extra is not None:
-        raise NotImplementedError("fit_gp_states: the off_extra coherence booster "
-                                  "is not ported")
-    if diag_params.lengths.dim() != 2:
-        raise NotImplementedError("fit_gp_states: diagonal lengths must be (2, PhaseDim) "
-                                  "vectors")
+    ``off_extra`` = (points (k, D), rho (k, 2)) joins the coherence's fit
+    only (the booster, GPLEConfig.coh_fit_extra).  Diagonal lengths are
+    (2, D) vectors or (2, D, D) characteristic matrices (full ARD, whose Grams
+    take transformed points in a launch of their own)."""
     diag_idx = list(DIAG_INDICES)
     diag_pts = density.points[diag_idx]                  # (2, N, D)
     diag_rho = density.rho[diag_idx, :, 0]
     off_pts = density.points[OFFDIAG_INDEX]              # (N, D)
     off_rho = density.rho[OFFDIAG_INDEX]
+    if off_extra is not None:
+        off_pts = torch.cat([off_pts, off_extra[0]])     # (N + k, D)
+        off_rho = torch.cat([off_rho, off_extra[1]])
+    same_shape = off_pts.shape[0] == diag_pts.shape[1]
+    vector = diag_params.lengths.dim() == 2
 
-    # the step's five (N, N) unit grams in one launch
-    lengths = torch.cat([diag_params.lengths, CK.sub_gram_lengths(offdiag_params)])
-    pts = torch.cat([diag_pts, off_pts.expand((3,) + off_pts.shape)])
-    g = gram_rbf(lengths, pts, pts)                      # (5, N, N)
-    k_d = RK.scale_gram(diag_params, g[:2], same=True)
-    k64, kt_re64, kt_im64 = CK.covariance_from_grams(offdiag_params, g[2], g[3], g[4],
+    off_lengths = CK.sub_gram_lengths(offdiag_params)
+    off_pts3 = off_pts.expand((3,) + off_pts.shape)
+    if same_shape and vector:
+        # the step's five (N, N) unit grams in one launch
+        pts = torch.cat([diag_pts, off_pts3])
+        g = gram_rbf(torch.cat([diag_params.lengths, off_lengths]), pts, pts)
+        g_d, g_o = g[:2], g[2:]
+    else:
+        g_d = RK.gram(diag_params.lengths, diag_pts, diag_pts)
+        g_o = gram_rbf(off_lengths, off_pts3, off_pts3)
+    k_d = RK.scale_gram(diag_params, g_d, same=True)
+    k64, kt_re64, kt_im64 = CK.covariance_from_grams(offdiag_params, g_o[0], g_o[1], g_o[2],
                                                       same=True)
     if not block_diag:
         m = CK.augmented_matrix(k64, kt_re64, kt_im64)
@@ -143,15 +163,23 @@ def fit_gp_states(
         off = CK.finish_complex_fit_full(offdiag_params, off_pts, off_rho, k64, kt_re64,
                                          kt_im64, w)
         return GPStates(diag=diag, offdiag=off, active=density.active)
-    ks = torch.cat([k_d, torch.stack([k64 + kt_re64, k64 - kt_re64])])
-    if prev is None:
-        winv = psd_inverse_batched(ks)
+    k_o = torch.stack([k64 + kt_re64, k64 - kt_re64])
+    if same_shape:
+        ks = torch.cat([k_d, k_o])
+        if prev is None:
+            winv = psd_inverse_batched(ks)
+        else:
+            warm = torch.cat([prev.diag.kinv, torch.stack(prev.offdiag.diag_blocks())])
+            winv = psd_inverse_warm_batched(ks, warm)
+        kinv_d, w_o = winv[:2], winv[2:]
+    elif prev is None:
+        kinv_d, w_o = psd_inverse_batched(k_d), psd_inverse_batched(k_o)
     else:
-        warm = torch.cat([prev.diag.kinv, torch.stack(prev.offdiag.diag_blocks())])
-        winv = psd_inverse_warm_batched(ks, warm)
-    diag = RK.finish_real_fit(diag_params, diag_pts, diag_rho, k_d, winv[:2])
+        kinv_d = psd_inverse_warm_batched(k_d, prev.diag.kinv)
+        w_o = psd_inverse_warm_batched(k_o, torch.stack(prev.offdiag.diag_blocks()))
+    diag = RK.finish_real_fit(diag_params, diag_pts, diag_rho, k_d, kinv_d)
     off = CK.finish_complex_fit(offdiag_params, off_pts, off_rho, k64, kt_re64, kt_im64,
-                                winv[2], winv[3])
+                                w_o[0], w_o[1])
     return GPStates(diag=diag, offdiag=off, active=density.active)
 
 
@@ -174,12 +202,16 @@ def predict_element(gps: GPStates, elem: int, pts, with_variance: bool = True):
     return torch.where(gps.active[elem], cut, 0.0)
 
 
-def predict_all(gps: GPStates, pts3, with_variance: bool = True):
+def predict_all(gps: GPStates, pts3, with_variance: bool = True,
+                off_with_variance: "bool | None" = None):
     """Every element's :func:`predict_element` at once: pts (3, M, PhaseDim)
     -> (3, M, 2) RI.  Both diagonal elements go through one batched predict
-    (one kernel launch), the off-diagonal through one complex predict."""
+    (one kernel launch), the off-diagonal through one complex predict, whose
+    cutoff ``off_with_variance`` defaults to ``with_variance``."""
+    if off_with_variance is None:
+        off_with_variance = with_variance
     _, _, diag_cut = RK.predict_real(gps.diag, pts3[list(DIAG_INDICES)], with_variance)
-    _, _, off_cut = CK.predict_complex(gps.offdiag, pts3[OFFDIAG_INDEX], with_variance)
+    _, _, off_cut = CK.predict_complex(gps.offdiag, pts3[OFFDIAG_INDEX], off_with_variance)
     out = torch.stack([ri.ri(diag_cut[0]), off_cut, ri.ri(diag_cut[1])])
     return torch.where(gps.active[:, None, None], out, 0.0)
 

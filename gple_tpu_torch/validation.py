@@ -14,16 +14,17 @@ The reference's validation binaries, on the port:
 * :func:`conservation_rescale` -- the per-surface rescale that enforces
   total population and energy (``test/gpr.cpp:913-992``).
 
-The hyperparameter fit :func:`_fit_nll` runs the port's fixed-fan L-BFGS
-(``gp.opt._lbfgs_fixed_fan``, the JAX package's accelerator branch) on the
-device of the data, the CUDA card unless ``device="cpu"``: each step's seven
-line-search candidates are one batched fit (a leading candidate axis on
-every operand), and the value and gradient come from ``torch.autograd``
+The hyperparameter fit :func:`_fit_nll` runs the port's bounded L-BFGS
+(``gp.opt._lbfgs_scan``) on the device of the data, the CUDA card unless
+``device="cpu"``.  Its default ``line_search="zoom"`` is optax's zoom line
+search, the solver the JAX package's validation reaches on the CPU;
+``line_search="fan"`` is the fixed fan of its accelerator branch, whose
+seven line-search candidates are one batched fit (a leading candidate axis
+on every operand).  The value and gradient come from ``torch.autograd``
 through the batched Cholesky and the kernels' autograd Functions.  The full
 lower-triangular ARD matrix ``W`` reaches the Gram as transformed points
 ``z = W x`` with unit lengths, so its gradient runs through the Gram's points
-cotangent (the ``rbf_gram_vjp_points`` kernel on the card).  Not ported: the
-JAX package's CPU branch of ``_lbfgs_scan`` (optax's zoom line search).
+cotangent (the ``rbf_gram_vjp_points`` kernel on the card).
 
 Random numbers: :func:`grid_weighted_selection` seeds numpy's weighted
 choice with ``key.randint(0, 2**31 - 1)`` (``RandomKeys``), where the JAX
@@ -39,7 +40,7 @@ from typing import List
 import numpy as np
 import torch
 
-from gple_tpu_torch.gp.opt import _bounds_to_sigmoid, _lbfgs_fixed_fan, _lead, _sigmoid_to_bounds
+from gple_tpu_torch.gp.opt import _bounds_to_sigmoid, _lbfgs_scan, _lead, _sigmoid_to_bounds
 from gple_tpu_torch.models import tully
 from gple_tpu_torch.ops import kernels as RK
 
@@ -88,8 +89,10 @@ def _unit_params(lengths, batch, like):
                            noise=torch.full_like(ones, FIT_NOISE))
 
 
-def _fit_nll(features, labels, lengths0, lb, ub, steps: int = 60, full_ard: bool = False):
-    """Two-stage NLL hyperparameter fit: L-BFGS in sigmoid coordinates inside
+def _fit_nll(features, labels, lengths0, lb, ub, steps: int = 60, full_ard: bool = False,
+             line_search: str = "zoom"):
+    """Two-stage NLL hyperparameter fit: L-BFGS (``line_search``, see
+    :func:`gple_tpu_torch.gp.opt._lbfgs_scan`) in sigmoid coordinates inside
     ``[lb, ub]``, twice (reference gpr.cpp:535-643 runs Nelder-Mead then
     TNEWTON), then the maximum-likelihood magnitude.  All tensors on one
     device; returns the fitted ``RealTrainState``.
@@ -116,8 +119,9 @@ def _fit_nll(features, labels, lengths0, lb, ub, steps: int = 60, full_ard: bool
         return torch.diag_embed(1.0 / theta[..., :pd]) + theta[..., pd, None, None] * cross
 
     def loss(z):
-        # z: (F, P), the line search's candidates; the features take the
-        # candidate axis too, so matrix lengths (F, D, D) match their rank
+        # z: (F, P), the line search's candidates (F = 1 under the zoom); the
+        # features take the candidate axis too, so matrix lengths (F, D, D)
+        # match their rank
         batch = z.shape[:-1]
         params = _unit_params(to_lengths(_sigmoid_to_bounds(z, lb, ub)), batch, z)
         st = RK.fit_real(params, _lead(features, batch), _lead(labels, batch))
@@ -125,7 +129,7 @@ def _fit_nll(features, labels, lengths0, lb, ub, steps: int = 60, full_ard: bool
 
     z = _bounds_to_sigmoid(theta0, lb, ub)
     for _ in range(2):
-        z = _lbfgs_fixed_fan(loss, z, steps)
+        z = _lbfgs_scan(loss, z, steps, line_search)
     with torch.no_grad():
         lengths = to_lengths(_sigmoid_to_bounds(z, lb, ub))
         state = RK.fit_real(_unit_params(lengths, (), z), features, labels)
@@ -145,10 +149,11 @@ class SnapshotFit:
 
 
 def screenshot_fit(key, coords, values, da: float, n_points: int = DEFAULT_NUM_POINTS,
-                   lengths0=None, full_ard: bool = False, device="cuda") -> SnapshotFit:
+                   lengths0=None, full_ard: bool = False, device="cuda",
+                   line_search: str = "zoom") -> SnapshotFit:
     """Fit one snapshot (coords (G, 2), real values (G,), cell area da) on
-    ``device`` and report MSE / NLL / populations both ways
-    (main_screenshot.cpp:96-114).
+    ``device`` with the ``line_search`` L-BFGS and report MSE / NLL /
+    populations both ways (main_screenshot.cpp:96-114).
 
     ``full_ard`` fits the full lower-triangular characteristic matrix (cross
     term between x and p) instead of axis-aligned lengths; ``lengths0`` stays
@@ -161,7 +166,8 @@ def screenshot_fit(key, coords, values, da: float, n_points: int = DEFAULT_NUM_P
     if lengths0 is None:
         lengths0 = 0.5 * std
     state = _fit_nll(torch.tensor(feats, **f64), torch.tensor(labels, **f64),
-                     torch.tensor(np.asarray(lengths0), **f64), lb, ub, full_ard=full_ard)
+                     torch.tensor(np.asarray(lengths0), **f64), lb, ub, full_ard=full_ard,
+                     line_search=line_search)
     with torch.no_grad():
         pred, _, _ = RK.predict_real(state, torch.as_tensor(coords, **f64),
                                      with_variance=False)
@@ -263,9 +269,11 @@ class EvolveFitFrame:
 
 
 def evolve_fit(key, times, frames, x_grid, p_grid, model: str, mass: float,
-               n_points: int = DEFAULT_NUM_POINTS, device="cuda") -> List[EvolveFitFrame]:
+               n_points: int = DEFAULT_NUM_POINTS, device="cuda",
+               line_search: str = "zoom") -> List[EvolveFitFrame]:
     """Fit a whole trajectory of diagonal Wigner frames on ``device`` with
-    warm-started hyperparameters (reference test/main_evolve.cpp:54-179).
+    warm-started hyperparameters and the ``line_search`` L-BFGS (reference
+    test/main_evolve.cpp:54-179).
 
     ``frames``: (T, 2, Nx, Np) real diagonal distributions from an oracle."""
     x_grid, p_grid = _host(x_grid), _host(p_grid)
@@ -287,7 +295,7 @@ def evolve_fit(key, times, frames, x_grid, p_grid, model: str, mass: float,
                 mses.append(0.0)
                 continue
             fit = screenshot_fit(sub, coords, vals, da, n_points, lengths0=warm[s],
-                                 device=device)
+                                 device=device, line_search=line_search)
             fitted = _host(fit.state.params.lengths)
             # warm start stays a plain length vector under either kernel class
             warm[s] = 1.0 / np.abs(np.diagonal(fitted)) if fitted.ndim == 2 else fitted

@@ -15,11 +15,13 @@
   (the ladder, the cutoff evolution, corr pinned to 1) carried into the port
   (``convert.driver_to_torch``, random draws replayed from the JAX key) and
   both advanced through two outputs, a ladder reoptimization with extra-cloud
-  regeneration, and two more outputs.  The JAX ladder runs its fixed-fan
-  inner solver (``_lbfgs_scan`` patched for this module, ``jax``'s caches
-  cleared around it).  Limits: points 1e-12, rho, alpha and the extra labels
-  1e-8 absolute, v 1e-8 relative to its largest entry, records 1e-8
-  relative, lengths 1e-8 and multipliers 1e-6 relative.
+  regeneration, and two more outputs: once with both ladders' default inner
+  solver (optax's zoom line search), unpatched, and once with the fixed fan
+  (JAX's ``_lbfgs_scan`` patched to ``_lbfgs_fixed_fan`` for that window,
+  ``jax``'s caches cleared around it; the port's ``line_search="fan"``).
+  Limits: points 1e-12, rho, alpha and the extra labels 1e-8 absolute, v
+  1e-8 relative to its largest entry, records 1e-8 relative, lengths 1e-8
+  and multipliers 1e-6 relative.
 * The CLI's checkpoint, ladder and reference-parity flags on ``--device cpu``.
 """
 
@@ -197,17 +199,19 @@ RP_RUN = dict(model="DAC", mass=2000.0, x0=-10.0, p0=30.0, sigma_p0=1.5, output_
 RP_TICKS = 4
 
 
-@pytest.fixture(scope="module")
-def parity_window(tmp_path_factory):
-    jax.clear_caches()
-    saved = jopt._lbfgs_scan
-    jopt._lbfgs_scan = jopt._lbfgs_fixed_fan
+def _parity_window(tmp_path_factory, line_search):
+    fan = line_search == "fan"
+    if fan:
+        jax.clear_caches()
+        saved = jopt._lbfgs_scan
+        jopt._lbfgs_scan = jopt._lbfgs_fixed_fan
     try:
         out_j = str(tmp_path_factory.mktemp("rp_jax"))
         out_t = str(tmp_path_factory.mktemp("rp_port"))
         jd = JGPLEDriver(JGPLEConfig(**RP_RUN), outdir=out_j)
         jd.initialize()
         td = convert.driver_to_torch(jd, "cpu", rng=JaxKeys(jd.key), outdir=out_t)
+        td.optimizer.line_search = line_search
         frames = {"jax": [], "port": []}
         for name, drv in (("jax", jd), ("port", td)):
             drv.observe(0, drv.opt_result.opt_type)
@@ -219,13 +223,29 @@ def parity_window(tmp_path_factory):
                              lambda rec, d=drv: frames["port"].append(snapshot(d)))
             drv.writers.close()
     finally:
-        jopt._lbfgs_scan = saved
-        jax.clear_caches()
+        if fan:
+            jopt._lbfgs_scan = saved
+            jax.clear_caches()
     return jd, td, frames
 
 
+@pytest.fixture(scope="module")
+def parity_window(tmp_path_factory):
+    return _parity_window(tmp_path_factory, "fan")
+
+
 def test_reference_parity_window_matches(parity_window):
-    jd, td, frames = parity_window
+    _check_parity_window(*parity_window)
+
+
+def test_reference_parity_window_zoom_matches(tmp_path_factory):
+    """The window with both packages' default ladder solver, unpatched."""
+    jd, td, frames = _parity_window(tmp_path_factory, "zoom")
+    _check_parity_window(jd, td, frames)
+    assert td.optimizer.stages[0]["zoom"]["iterations"] > 0
+
+
+def _check_parity_window(jd, td, frames):
     assert td.cfg.evolve_cutoff is True and td.cfg.purity_target == "initial"
     assert td.optimizer.corr_bounds == (1.0, 1.0) and td.optimizer.off_params[-1] == 1.0
     assert [h.opt_type for h in td.history] == [h.opt_type for h in jd.history]

@@ -13,9 +13,11 @@
 * The integrals of a JAX matrix-length state carried across
   (``convert.to_torch``) against ``gple_tpu``'s, 1e-10 relative.
 * ``screenshot_fit`` against ``gple_tpu.validation.screenshot_fit`` on the
-  same tilted snapshot and key, with the port's solver (the fixed-fan
-  L-BFGS) patched into ``gple_tpu.validation`` (``jax.clear_caches()``
-  around it): lengths 1e-6 relative, MSE and populations 1e-6 relative.
+  same tilted snapshot and key: with both packages' default solver (optax's
+  zoom line search), unpatched; and with the fixed fan (the port's
+  ``line_search="fan"``, patched into ``gple_tpu.validation`` with
+  ``jax.clear_caches()`` around it): lengths 1e-6 relative, MSE and
+  populations 1e-6 relative.
 """
 
 import jax
@@ -60,15 +62,24 @@ def _tilted_snapshot():
     return coords, tilted_gaussian(coords), (g[1] - g[0]) ** 2
 
 
-@pytest.fixture(scope="module")
-def tilted_fits():
+def _port_fits(line_search):
     """The port's axis-aligned and full-ARD fits of the tilted snapshot, from
     the JAX key of ``tests/test_full_ard.py`` (the same selected points)."""
     coords, vals, da = _tilted_snapshot()
     key = JaxKeys(jax.random.PRNGKey(7))
     return {full: V.screenshot_fit(key, coords, vals, da, n_points=160, full_ard=full,
-                                   device="cpu")
+                                   device="cpu", line_search=line_search)
             for full in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def tilted_fits():
+    return _port_fits("zoom")
+
+
+@pytest.fixture(scope="module")
+def tilted_fits_fan():
+    return _port_fits("fan")
 
 
 # -- tests/test_full_ard.py on the port ----------------------------------------------------
@@ -225,11 +236,19 @@ def test_matrix_state_integrals_match_jax():
                                rtol=1e-13)
 
 
+def _check_fit_pair(ours, theirs):
+    jl = np.asarray(theirs.state.params.lengths)
+    np.testing.assert_allclose(ours.state.params.lengths.numpy(), jl, rtol=0,
+                               atol=TOL_FIT * np.abs(jl).max())
+    for name in ("mse", "population_grid", "population_prm"):
+        assert getattr(ours, name) == pytest.approx(getattr(theirs, name), rel=TOL_FIT), name
+
+
 @pytest.mark.parametrize("full_ard", [False, True], ids=["vector", "full_ard"])
-def test_screenshot_fit_matches_jax(tilted_fits, full_ard):
+def test_screenshot_fit_matches_jax(tilted_fits_fan, full_ard):
     """The same snapshot, key and solver: the JAX package's fit with its
     ``_lbfgs_scan`` (bound into ``gple_tpu.validation``) replaced by the
-    fixed fan that the port runs."""
+    fixed fan, against the port's ``line_search="fan"``."""
     coords, vals, da = _tilted_snapshot()
     saved = JV._lbfgs_scan
     JV._lbfgs_scan = JO._lbfgs_fixed_fan
@@ -240,9 +259,13 @@ def test_screenshot_fit_matches_jax(tilted_fits, full_ard):
     finally:
         JV._lbfgs_scan = saved
         jax.clear_caches()
-    ours = tilted_fits[full_ard]
-    jl = np.asarray(theirs.state.params.lengths)
-    np.testing.assert_allclose(ours.state.params.lengths.numpy(), jl, rtol=0,
-                               atol=TOL_FIT * np.abs(jl).max())
-    for name in ("mse", "population_grid", "population_prm"):
-        assert getattr(ours, name) == pytest.approx(getattr(theirs, name), rel=TOL_FIT), name
+    _check_fit_pair(tilted_fits_fan[full_ard], theirs)
+
+
+@pytest.mark.parametrize("full_ard", [False, True], ids=["vector", "full_ard"])
+def test_screenshot_fit_zoom_matches_jax(tilted_fits, full_ard):
+    """Both packages' fit as they are: optax's zoom line search, unpatched."""
+    coords, vals, da = _tilted_snapshot()
+    theirs = JV.screenshot_fit(jax.random.PRNGKey(7), coords, vals, da, n_points=160,
+                               full_ard=full_ard)
+    _check_fit_pair(tilted_fits[full_ard], theirs)

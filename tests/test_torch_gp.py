@@ -212,12 +212,45 @@ def test_fit_complex_block_diag_matches(complex_data):
 
 
 def test_complex_unported_paths_raise(complex_data):
-    _, tp = complex_params(0.0)
-    x, y = t64(complex_data["x"]), t64(complex_data["y"])
-    # the chirp estimate is the complex kernel's one unported path
-    for block_diag in (True, False):
-        with pytest.raises(NotImplementedError, match="chirp"):
-            CK.fit_complex(tp, x, y, chirp=True, block_diag=block_diag)
+    """The chirped fit, the complex kernel's last path to be ported (the
+    name is the record of when it raised): both fit paths against JAX's --
+    the estimated wavevector, the demodulated labels and the fit -- and the
+    remodulated prediction."""
+    x, y, xt = complex_data["x"], complex_data["y"], complex_data["xt"]
+    for block_diag, corr in ((True, 0.0), (False, 0.4)):
+        jp, tp = complex_params(corr)
+        ref = JCK.fit_complex(jp, jnp.asarray(x), jnp.asarray(y), chirp=True,
+                              block_diag=block_diag)
+        out = CK.fit_complex(tp, t64(x), t64(y), chirp=True, block_diag=block_diag)
+        np.testing.assert_allclose(out.chirp_k.numpy(), np.asarray(ref.chirp_k), rtol=0,
+                                   atol=1e-10 * np.abs(np.asarray(ref.chirp_k)).max())
+        assert abs(float(out.chirp_k[1]) - 0.7) < 0.1     # the labels' fringe: 0.7 per unit p
+        np.testing.assert_allclose(out.labels.numpy(), np.asarray(ref.labels), rtol=0,
+                                   atol=1e-10)
+        np.testing.assert_allclose(out.v.numpy(), np.asarray(ref.v), rtol=0,
+                                   atol=1e-8 * np.abs(np.asarray(ref.v)).max())
+        for with_variance in (True, False):
+            jm = JCK.predict_complex(ref, jnp.asarray(xt), with_variance)[2]
+            tm = CK.predict_complex(out, t64(xt), with_variance)[2]
+            np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0,
+                                       atol=1e-8 * np.abs(np.asarray(jm)).max())
+
+
+def test_estimate_chirp_matches():
+    """``tests/test_complex_kernels.py``'s chirp cases on the port: a plane
+    wave's wavevector recovered, all-zero labels give k = 0; against JAX's
+    estimate on the same cloud."""
+    rng = np.random.default_rng(5)
+    x = np.stack([rng.normal(-2.0, 0.5, 200), rng.normal(20.0, 1.5, 200)], axis=-1)
+    k = np.array([0.4, 2.5])
+    amp = np.exp(-0.5 * np.sum(((x - [-2.0, 20.0]) / [0.5, 1.5]) ** 2, axis=-1))
+    y = np.stack([amp * np.cos(x @ k), amp * np.sin(x @ k)], axis=-1)
+    est = CK.estimate_chirp(t64(x), t64(y)).numpy()
+    np.testing.assert_allclose(est, np.asarray(JCK.estimate_chirp(jnp.asarray(x),
+                                                                  jnp.asarray(y))),
+                               rtol=0, atol=1e-10 * np.abs(k).max())
+    np.testing.assert_allclose(est, k, rtol=0.05)
+    assert np.all(CK.estimate_chirp(t64(x), t64(np.zeros_like(y))).numpy() == 0.0)
 
 
 @pytest.mark.parametrize("with_variance", [True, False])
@@ -281,14 +314,45 @@ def test_fit_gp_states_matches(density_pair, warm):
 
 
 def test_fit_gp_states_unported_paths_raise(density_pair):
-    _, td = density_pair
-    _, tdp = _params()
-    _, top = complex_params(0.0)
-    # the coherence booster is the refit's one unported path
-    for block_diag in (True, False):
-        with pytest.raises(NotImplementedError, match="off_extra"):
-            TS.fit_gp_states(tdp, top, td, off_extra=(td.points[1], td.rho[1]),
-                             block_diag=block_diag)
+    """The booster, the refit's last path to be ported (the name is the
+    record of when it raised): k extra points join the coherence fit only,
+    cold and warm, block-diagonal and full, against JAX's; full-ARD diagonal
+    lengths; and ``make_density``."""
+    jd, td = density_pair
+    jdp, tdp = _params()
+    rng = np.random.default_rng(18)
+    e_pts = cloud(rng, 24)
+    e_rho = 1e-3 * rng.normal(size=(24, 2))
+    for block_diag, corr in ((True, 0.0), (False, 0.4)):
+        jop, top = complex_params(corr)
+        jprev = tprev = None
+        for _ in range(2):
+            ref = JS.fit_gp_states(jdp, jop, jd, prev=jprev,
+                                   off_extra=(jnp.asarray(e_pts), jnp.asarray(e_rho)),
+                                   block_diag=block_diag)
+            out = TS.fit_gp_states(tdp, top, td, prev=tprev, off_extra=(t64(e_pts), t64(e_rho)),
+                                   block_diag=block_diag)
+            assert out.offdiag.features.shape == (40 + 24, 2)
+            assert out.diag.features.shape == (2, 40, 2)
+            np.testing.assert_allclose(out.offdiag.v.numpy(), np.asarray(ref.offdiag.v),
+                                       rtol=0, atol=1e-8 * np.abs(np.asarray(ref.offdiag.v)).max())
+            np.testing.assert_allclose(out.diag.alpha.numpy(), np.asarray(ref.diag.alpha),
+                                       atol=1e-8)
+            np.testing.assert_allclose(out.purity().numpy(), np.asarray(ref.purity()),
+                                       rtol=1e-10)
+            jprev, tprev = ref, out
+    # full-ARD diagonal lengths (characteristic matrices), once refused
+    w = np.array([[[3.0, 0.0], [0.4, 0.7]], [[2.5, 0.0], [-0.3, 0.8]]])
+    jw = jdp._replace(lengths=jnp.asarray(w))
+    jop, top = complex_params(0.0)
+    ref = JS.fit_gp_states(jw, jop, jd, block_diag=True)
+    out = TS.fit_gp_states(tdp._replace(lengths=t64(w)), top, td, block_diag=True)
+    np.testing.assert_allclose(out.diag.alpha.numpy(), np.asarray(ref.diag.alpha), rtol=0,
+                               atol=1e-8 * np.abs(np.asarray(ref.diag.alpha)).max())
+    jm = JS.make_density(8, [-2.0, 20.0], [True, False, True])
+    tm = TS.make_density(8, [-2.0, 20.0], [True, False, True], device="cpu")
+    for name in ("points", "rho", "active"):
+        np.testing.assert_array_equal(getattr(tm, name).numpy(), np.asarray(getattr(jm, name)))
 
 
 @pytest.fixture(scope="module")

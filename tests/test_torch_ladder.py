@@ -3,12 +3,16 @@
 The clouds are ``tests/test_opt.py``'s Metropolis-sampled density (N = 64
 points, 5N extra points), once as it is (only element (0, 0) active) and
 once with a quadrature coherence and a small upper population (all three
-elements active, so the full pass with the coherence runs).  The JAX
-package's ladder runs its CPU inner solver (optax's zoom line search) unless
-told otherwise; these tests patch ``gple_tpu.gp.opt._lbfgs_scan`` to its
-fixed-fan branch, the one the port has, inside the test only (``jax``'s
-caches are cleared around the patch and the step counts are ones no other
-test traces, so the patch takes and does not leak).
+elements active, so the full pass with the coherence runs).
+
+Two inner solvers.  The default of both packages on the CPU is optax's zoom
+line search (the port's ``_lbfgs_zoom``): ``test_run_stage_zoom_matches`` and
+``test_optimize_ladder_zoom_matches`` compare the two ladders as they are,
+unpatched.  The fixed fan (the JAX package's accelerator branch, the port's
+``line_search="fan"``): the other stage and optimizer tests patch
+``gple_tpu.gp.opt._lbfgs_scan`` to ``_lbfgs_fixed_fan`` only while the JAX
+side computes (``_jax_fixed_fan``; ``jax``'s caches are cleared on entry and
+exit, so the patch neither reuses nor leaves a trace).
 
 Limits: the losses, the averages and their gradients (port autograd
 through the Cholesky and the kernels' Functions against ``jax.grad``) 1e-7
@@ -20,11 +24,13 @@ absolute, so the two packages may step to different points of equal loss); one
 relative in lengths, coherence parameters and averages, and 1e-5 relative
 in the multipliers and the final error (each of their ~60 line searches
 compares candidate losses that agree to ~1e-12, and the error is the loss
-at a flat optimum), with the same accepted stage; the
+at a flat optimum), with the same accepted stage, for either solver; the
 Halton sweeps exactly the same candidate.  The port's optimized fit then
 passes ``tests/test_opt.py``'s acceptance checks (population, energy and
 purity within 5%, 15% for purity; bounds; fit quality; magnitudes).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -55,21 +61,21 @@ def _one_torch_thread():
 
 TOL_LOSS, TOL_FAN, TOL_STAGE, TOL_LAM = 1e-7, 1e-7, 1e-6, 1e-5
 TOL_ERROR = TOL_LAM
-#: L-BFGS steps of the compared runs: no other test traces this count, so the
-#: patched JAX solver is the one compiled (once per problem: the stage test
-#: and the cold stages of the optimizer share the static arguments)
+#: L-BFGS steps of the compared runs
 OPT_STEPS = 5
 
 
-@pytest.fixture(scope="module")
-def jax_fixed_fan():
-    """The JAX ladder on its fixed-fan inner solver, for this module only."""
+@contextlib.contextmanager
+def _jax_fixed_fan():
+    """The JAX ladder on its fixed-fan inner solver, inside the block only."""
     jax.clear_caches()
     saved = jopt._lbfgs_scan
     jopt._lbfgs_scan = jopt._lbfgs_fixed_fan
-    yield
-    jopt._lbfgs_scan = saved
-    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jopt._lbfgs_scan = saved
+        jax.clear_caches()
 
 
 def rel(ours, theirs, tol, what):
@@ -179,37 +185,49 @@ def test_lbfgs_fixed_fan_matches(problem):
         rel(tloss(zt[None])[0], jloss(zj), 1e-9, f"loss after {steps} steps")
 
 
-def test_run_stage_matches(problem, jax_fixed_fan):
+def _stage_pair(problem, line_search):
+    """JAX's ``_run_stage`` (the fixed fan patched in for "fan") and the
+    port's with ``line_search``, from the same start and warm multipliers."""
     jdata, tdata, off_active = problem["jdata"], problem["tdata"], problem["off_active"]
     diag, off = _params(problem, np.random.default_rng(42))
     lam0 = np.array([[0.5, -0.2, 0.1], [0.3, 0.0, -0.4]])
-    ref = jopt._run_stage(jnp.asarray(diag), jnp.asarray(off), jnp.asarray(lam0), jdata,
-                          off_active, OPT_STEPS, jopt.AL_OUTER)
+    with _jax_fixed_fan() if line_search == "fan" else contextlib.nullcontext():
+        ref = jopt._run_stage(jnp.asarray(diag), jnp.asarray(off), jnp.asarray(lam0), jdata,
+                              off_active, OPT_STEPS, jopt.AL_OUTER)
+        ref = [np.asarray(r) for r in ref]
     out = opt._run_stage(torch.tensor(diag), torch.tensor(off), torch.tensor(lam0), tdata,
-                         off_active, OPT_STEPS, opt.AL_OUTER)
+                         off_active, OPT_STEPS, opt.AL_OUTER, line_search)
     for o, r, name in zip(out[:4], ref[:4], ("diag lengths", "off params", "error",
                                              "averages")):
         rel(o, r, TOL_ERROR if name == "error" else TOL_STAGE, name)
     rel(out[4], ref[4], TOL_LAM, "multipliers")
 
 
-@pytest.fixture(scope="module")
-def ladder_runs(problem, jax_fixed_fan):
+def test_run_stage_matches(problem):
+    _stage_pair(problem, "fan")
+
+
+def _optimize_pair(problem, line_search):
     """Both packages' ``Optimizer.optimize`` from the same state (the warm
-    ``local_previous`` stage of a reoptimization is ``test_run_stage_matches``
+    ``local_previous`` stage of a reoptimization is :func:`_stage_pair`
     with nonzero multipliers)."""
     kw = dict(problem["kw"], lbfgs_steps=OPT_STEPS)
-    jo, to = jopt.Optimizer(**kw), opt.Optimizer(**kw, device="cpu")
+    jo, to = jopt.Optimizer(**kw), opt.Optimizer(**kw, device="cpu", line_search=line_search)
     energies = problem["energies"]
-    jres = jo.optimize(problem["density"], problem["extra"], energies)
+    with _jax_fixed_fan() if line_search == "fan" else contextlib.nullcontext():
+        jres = jo.optimize(problem["density"], problem["extra"], energies)
     tres = to.optimize(convert.to_torch(problem["density"], "cpu"),
                        convert.to_torch(problem["extra"], "cpu"),
                        torch.tensor(np.asarray(energies)))
     return jo, to, [(jres, tres, jo._al_lam, to._al_lam)]
 
 
-def test_optimize_ladder_matches(ladder_runs):
-    jo, to, runs = ladder_runs
+@pytest.fixture(scope="module")
+def ladder_runs(problem):
+    return _optimize_pair(problem, "fan")
+
+
+def _check_optimize_pair(jo, to, runs):
     for jres, tres, jlam, tlam in runs:
         assert tres.opt_type == jres.opt_type
         assert tres.steps == jres.steps == [OPT_STEPS]
@@ -219,6 +237,27 @@ def test_optimize_ladder_matches(ladder_runs):
     rel(to.off_params, jo.off_params, TOL_STAGE, "off params")
     rel(to.diag_magnitudes, jo.diag_magnitudes, TOL_STAGE, "diag magnitudes")
     rel(to.off_magnitude, jo.off_magnitude, TOL_STAGE, "off magnitude")
+
+
+def test_optimize_ladder_matches(ladder_runs):
+    _check_optimize_pair(*ladder_runs)
+
+
+def test_run_stage_zoom_matches(problem):
+    """Both packages' ladder stage with their default solver, unpatched (after
+    the fan's tests: its patch clears JAX's caches, and the next test reuses
+    this one's compiled stage)."""
+    _stage_pair(problem, "zoom")
+
+
+def test_optimize_ladder_zoom_matches(problem):
+    """The whole ladder with both packages' default solver, unpatched; the
+    port's stages report the zoom's counts."""
+    jo, to, runs = _optimize_pair(problem, "zoom")
+    _check_optimize_pair(jo, to, runs)
+    for st in to.stages:
+        assert st["zoom"]["solves"] > 0 and st["zoom"]["iterations"] > 0
+        assert st["zoom"]["syncs"] >= st["zoom"]["iterations"]
 
 
 def test_ladder_fit_passes_the_acceptance_checks(ladder_runs, problem):

@@ -123,10 +123,11 @@ def one_torch_thread():
 
 
 def test_ladder_is_not_ported(clouds, one_torch_thread):
-    """Of the constrained ladder only the JAX package's CPU inner solver
-    (optax's zoom line search) is not ported: the port runs the fixed fan on
-    every device.  Here it runs on all three elements and one of the three
-    stages is accepted; an unknown mode raises."""
+    """The constrained ladder is ported whole, with both of the JAX
+    package's inner solvers: optax's zoom line search (its CPU branch, the
+    default) and the fixed fan (its accelerator branch).  Here it runs on
+    all three elements with each, and one of the three stages is accepted;
+    an unknown mode raises."""
     pts, rho, epts, erho = clouds
     t = torch.tensor
     from gple_tpu_torch.storage import Density
@@ -135,10 +136,12 @@ def test_ladder_is_not_ported(clouds, one_torch_thread):
     extra = Density(points=t(epts), rho=t(erho), active=density.active)
     kw = dict(model="SAC", mass=2000.0, total_energy=0.2, purity=1.0, sigma_r0=SIGMA,
               device="cpu")
-    to = opt.Optimizer(**kw, opt_mode="ladder", lbfgs_steps=2)
-    res = to.optimize(density, extra, t([0.2, 0.0]))
-    assert res.opt_type in ("local_previous", "local_initial", "global")
-    assert to._al_lam.shape == (2, 3) and np.isfinite(res.error)
-    assert hasattr(opt, "_lbfgs_fixed_fan") and not hasattr(opt, "_lbfgs_zoom")
+    for line_search in opt.LINE_SEARCHES:
+        to = opt.Optimizer(**kw, opt_mode="ladder", lbfgs_steps=2, line_search=line_search)
+        res = to.optimize(density, extra, t([0.2, 0.0]))
+        assert res.opt_type in ("local_previous", "local_initial", "global")
+        assert to._al_lam.shape == (2, 3) and np.isfinite(res.error)
+        assert (to.stages[0]["zoom"]["solves"] > 0) == (line_search == "zoom")
+    assert callable(opt._lbfgs_fixed_fan) and callable(opt._lbfgs_zoom)
     with pytest.raises(ValueError, match="opt_mode"):
         opt.Optimizer(**kw, opt_mode="zoom").optimize(density, extra, t([0.2, 0.0]))

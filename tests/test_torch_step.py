@@ -17,9 +17,11 @@ import torch
 import __graft_entry__ as graft
 from gple_tpu import driver as JD
 from gple_tpu.parallel.sharding import make_step_fn as jax_make_step_fn
+from gple_tpu import storage as JS
 from gple_tpu.storage import Density as JDensity
 from gple_tpu_torch import convert
 from gple_tpu_torch import driver as TD
+from gple_tpu_torch import storage as TS
 from gple_tpu_torch.entry import example_extra, example_state
 from gple_tpu_torch.ops import gram_kernels as GK
 from gple_tpu_torch.parallel.sharding import make_step_fn
@@ -95,13 +97,42 @@ def test_slice_on_cpu_launches_no_kernel(start):
 
 
 def test_tick_core_unported_options_raise(start):
-    _, _, td, tg = start
-    args = (MODEL, MASS, DT, td, td, tg, tg.diag.params, tg.offdiag.params,
-            TD.gp_dist_all_nocut)
-    with pytest.raises(NotImplementedError):
-        TD._tick_core(*args, "diag", 0, 2.0, True)
-    with pytest.raises(NotImplementedError):
-        TD._tick_core(*args, "none", 8, 2.0, True)
+    """Every option of the tick is ported now (the name is the record of
+    when two were not): per-tick moment tracking of every element, the
+    booster (8 extra points join the coherence fit, at coherence divisor 6)
+    and the coherence-only cutoff, together for two ticks against JAX's (one
+    compile; the flag tests cover tracking of the coherence alone)."""
+    jd0, jg0, td0, tg0 = start
+    extra_t0 = example_extra(5 * N, "cpu", generator=torch.Generator().manual_seed(2))
+    ex = convert.to_numpy(extra_t0)
+    extra_j0 = JDensity(points=jnp.asarray(ex.points), rho=jnp.asarray(ex.rho),
+                        active=jnp.asarray(ex.active))
+    jtick = jax.jit(partial(JD._tick_core, MODEL, MASS, DT), static_argnums=(5, 6, 7, 8, 9))
+    for track, k, div, cut in (("all", 8, 6.0, "coh"),):
+        jd, jg, extra_j, td, tg, extra_t = jd0, jg0, extra_j0, td0, tg0, extra_t0
+        if k:
+            # the booster's states carry N + k coherence points from the start
+            jg = JS.fit_gp_states(jg0.diag.params, jg0.offdiag.params, jd0,
+                                  off_extra=JD._off_extra_slice(extra_j0, k), block_diag=True)
+            tg = TS.fit_gp_states(tg0.diag.params, tg0.offdiag.params, td0,
+                                  off_extra=TD._off_extra_slice(extra_t0, k), block_diag=True)
+            check(td, tg, jd, jg, "booster fit")
+        for i in range(2):
+            jd, extra_j, jsmall, jg = jtick(jd, extra_j, jg, jg0.diag.params,
+                                            jg0.offdiag.params, JD._evolve_dist_for(cut),
+                                            track, k, div, True)
+            td, extra_t, tsmall, tg = TD._tick_core(
+                MODEL, MASS, DT, td, extra_t, tg, tg0.diag.params, tg0.offdiag.params,
+                TD._evolve_dist_for(cut), track, k, div, True)
+            check(td, tg, jd, jg, f"{track}/{k}: tick {i}")
+            np.testing.assert_array_equal(tsmall.numpy(), np.asarray(jsmall))
+            assert tg.offdiag.features.shape[0] == N + k
+            for name in ("real_lengths", "imag_lengths", "real_magnitude"):
+                np.testing.assert_allclose(getattr(tg.offdiag.params, name).numpy(),
+                                           np.asarray(getattr(jg.offdiag.params, name)),
+                                           rtol=1e-12, err_msg=name)
+            np.testing.assert_allclose(tg.diag.params.lengths.numpy(),
+                                       np.asarray(jg.diag.params.lengths), rtol=1e-12)
 
 
 def test_example_state_is_seeded():

@@ -124,10 +124,11 @@ def test_reopt_epilogue_replays_jax(active):
     dparams, oparams = jg.diag.params, jg.offdiag.params
     jgps, jextra, jpop, jpur = JD._reopt_epilogue(False, 0, n_extra, jd, je, dparams, oparams,
                                                   keys, True)
+    td = convert.to_torch(jd, "cpu")
     tgps, textra, tpop, tpur = TD._reopt_epilogue(
-        n_extra, convert.to_torch(jd, "cpu"), convert.to_torch(dparams, "cpu"),
+        False, 0, n_extra, td, td, convert.to_torch(dparams, "cpu"),
         convert.to_torch(oparams, "cpu"),
-        [JaxKeys(keys[k]) if active[k] else None for k in range(3)])
+        [JaxKeys(keys[k]) if active[k] else None for k in range(3)], True)
     np.testing.assert_allclose(textra.points.numpy(), np.asarray(jextra.points), rtol=0,
                                atol=1e-12)
     np.testing.assert_allclose(textra.rho.numpy(), np.asarray(jextra.rho), rtol=0, atol=1e-8)
