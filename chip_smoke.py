@@ -87,12 +87,27 @@ Phases (any failure raises and the script exits non-zero):
 18. ECR gate (``tests/test_ecr_parity.py``): Tully C at x0 = -2, p0 = 20,
    N = 64, 400 ticks against the port's reflective DVR: population RMSE
    < 1e-3 and the total population within 2% of 1 at every output;
-19. kernels at the ECR run's shapes not seen before, as in phase 3.
+19. kernels at the ECR run's shapes not seen before, as in phase 3;
+20. sharding: ``parallel.sharding.sharded_step_fn`` (``shard_refit=True``)
+   at N = 1024 on ``entry.example_state(1024)`` on an in-process NCCL group
+   of world size 1 (a file store in a temporary directory), 2 warm-up + 10
+   timed steps against as many ``make_step_fn`` steps (1e-12 relative to the
+   largest |entry|; s/step of both); ``entry.dryrun_multichip`` on every
+   card; and two gloo ranks with CUDA tensors on the one card (NCCL refuses
+   two ranks on one card), their gathered state against the same steps;
+21. profile: ``trajectory_config(1024)`` with ``init_cache`` for 10 ticks
+   cold, then again with ``profile_dir`` restored from the cache (records
+   and state bit for bit the cold run's): the trace must name the device
+   kernels of ``rbf_gram`` and ``rbf_predict_mean``; prints the five device
+   operations that took the most time, the time by family and the
+   device-busy share of the traced window; then the kernels at the shapes
+   of phases 20-21 not seen before, as in phase 3.
 
-Each of phases 5-7, 10, 11, 14, 16 and 18 resets the launch counters just
-before it and reads them just after; every forward kernel must have launched
-in each, the two length VJP kernels in phases 10 and 11, and
-``rbf_gram_vjp_points`` in phase 14.  The second-to-last
+Each of phases 5-7, 10, 11, 14, 16, 18, 20 and 21 resets the launch
+counters just before it and reads them just after; every forward kernel must
+have launched in each but 20, which must launch ``rbf_gram`` (its predicts
+carry the variance, through a cross-Gram and cuBLAS), the two length VJP
+kernels in phases 10 and 11, and ``rbf_gram_vjp_points`` in phase 14.  The second-to-last
 lines are a JSON object ``{"kernels": [...]}`` and the ``nvidia-smi``
 name/power line; the last line is ``{"ok": true, "device": {...}}``.  TF32 is
 off for matmuls and convolutions: the port computes in float64, and float32
@@ -146,6 +161,10 @@ BOOST_AGREE_TICKS, BOOST_AGREE_STRIDE = 5, 4
 TOL_BOOST_AGREE = 1e-9      # booster ticks, card against CPU, relative to the largest |entry|
 ECR_N, ECR_TICKS = 64, 400
 ECR_RMSE, ECR_POP = 1e-3, 0.02   # tests/test_ecr_parity.py
+#: phase 20: the sharded step against make_step_fn, relative to the largest |entry|
+TOL_SHARDED = 1e-12
+#: phase 21: ticks of the profiled trajectory
+PROFILE_TICKS = 10
 FORWARD = ("rbf_gram", "rbf_predict_mean")
 LENGTH_VJPS = ("rbf_gram_vjp", "rbf_predict_vjp")
 DVR_TABLE = Path(__file__).resolve().parent / "gple_tpu_torch" / "data" / "sac_crossing_dvr.json"
@@ -1362,6 +1381,259 @@ def ecr_phase():
     return launches, by_shape, result
 
 
+def _rel_err(ours, theirs) -> float:
+    """The largest |difference| over the largest |reference entry|, over leaves."""
+    err = scale = 0.0
+    for a, b in zip(_leaves(ours), _leaves(theirs)):
+        if b.is_floating_point():
+            err = max(err, (a - b).abs().max().item())
+            scale = max(scale, b.abs().max().item())
+    return err / max(scale, 1e-300)
+
+
+def sharding_phase(n: int = N_SLICE, device: str = "cuda"):
+    """Phase 20: ``sharded_step_fn`` on an in-process group of world size 1
+    (NCCL on the card) against ``make_step_fn``, then ``dryrun_multichip`` on
+    every card.  Both steps run 2 warm-up and 10 timed steps from the same
+    example state; the sharded run's launches are counted alone."""
+    import os
+
+    import torch.distributed as dist
+
+    from gple_tpu_torch.entry import dryrun_multichip, example_state
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.parallel import sharding as SH
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(step, density, gps):
+        for _ in range(WARMUP_STEPS):
+            density, gps = step(density, gps)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            density, gps = step(density, gps)
+        sync()
+        return density, gps, (time.perf_counter() - t0) / TIMED_STEPS
+
+    density, gps = example_state(n, device, generator=torch.Generator().manual_seed(0))
+    plain = SH.make_step_fn(MODEL, MASS, DT)
+    ref_density, ref_gps, s_plain = timed(plain, density, gps)
+    with tempfile.TemporaryDirectory() as tmp:
+        SH.init_group(0, 1, os.path.join(tmp, "store"), device)
+        try:
+            mesh = SH.make_mesh(1, device)
+            step = SH.sharded_step_fn(MODEL, MASS, DT, mesh, shard_refit=True)
+            sync()
+            GK.reset_launches()
+            local, state, s_sharded = timed(step, SH.shard_density(density, mesh), gps)
+            launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+            # in turns (plain, sharded, sharded, plain): host noise moves
+            # s/step by more than the collectives cost at world size 1
+            s_sharded = [s_sharded, timed(step, SH.shard_density(density, mesh), gps)[2]]
+            s_plain = [s_plain, timed(plain, density, gps)[2]]
+            backend = dist.get_backend()
+            out_density = SH.gather_density(local, mesh)
+            out_gps = SH.gather_gps(state, mesh)
+        finally:
+            dist.destroy_process_group()
+    errs = {"density": _rel_err(out_density, ref_density), "gps": _rel_err(out_gps, ref_gps)}
+    identical = all(torch.equal(a, b) for a, b in zip(_leaves((out_density, out_gps)),
+                                                       _leaves((ref_density, ref_gps))))
+    result = dict(n=n, world_size=1, backend=backend, steps=WARMUP_STEPS + TIMED_STEPS,
+                  s_per_step_plain=s_plain, s_per_step_sharded=s_sharded,
+                  collectives_s=(sum(s_sharded) - sum(s_plain)) / 2, rel_err=errs,
+                  bit_identical=identical, launches=launches)
+    log(f"sharding N={n}: " + json.dumps(result))
+    for name, tree in (("density", out_density), ("gps", out_gps)):
+        _check_finite(f"sharding {name}", tree)
+    if not max(errs.values()) <= TOL_SHARDED:
+        raise AssertionError(f"sharding: the sharded step differs from make_step_fn: {errs}")
+    if device == "cuda":   # the CPU (a rehearsal) takes the plain versions
+        _check_path_launches("sharding", launches, names=("rbf_gram",))
+    world = torch.cuda.device_count() if device == "cuda" else 1
+    t0 = time.perf_counter()
+    dryrun_multichip(world, device=device)
+    log(f"sharding: dryrun_multichip({world}) {time.perf_counter() - t0!r} s "
+        "(rank processes started, built state, one step)")
+    if device == "cuda":
+        t0 = time.perf_counter()
+        two = gloo_one_card(n)
+        err = _rel_err(two["out"], (ref_density, ref_gps))
+        result["gloo_one_card"] = dict(world_size=2, s_per_step=two["s_per_step"],
+                                       rel_err=err, wall_s=time.perf_counter() - t0)
+        log(f"sharding N={n}: two gloo ranks on one card, CUDA tensors: "
+            + json.dumps(result["gloo_one_card"]))
+        if not err <= TOL_SHARDED:
+            raise AssertionError(f"sharding: two gloo ranks differ from make_step_fn by {err}")
+    return launches, by_shape, result
+
+
+def _gloo_card_rank(rank: int, world: int, store_path: str, out_dir: str, n: int) -> None:
+    """One rank of :func:`gloo_one_card`: a gloo group whose ranks all hold
+    card 0, the mesh built by hand (``make_mesh`` pairs cuda with NCCL only)."""
+    import os
+
+    import torch.distributed as dist
+
+    from gple_tpu_torch.entry import example_state
+    from gple_tpu_torch.parallel import sharding as SH
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=SH.TIMEOUT)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = SH.PointMesh(group=dist.group.WORLD, rank=rank, size=world, device=dev)
+        density, gps = example_state(n, dev, generator=torch.Generator().manual_seed(0))
+        step = SH.sharded_step_fn(MODEL, MASS, DT, mesh, shard_refit=True)
+        local, state = SH.shard_density(density, mesh), gps
+        for _ in range(WARMUP_STEPS):
+            local, state = step(local, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            local, state = step(local, state)
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / TIMED_STEPS
+        whole = (SH.gather_density(local, mesh), SH.gather_gps(state, mesh))
+        if rank == 0:
+            torch.save(dict(s_per_step=s_step, out=whole), os.path.join(out_dir, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_one_card(n: int = N_SLICE, world: int = 2):
+    """``world`` ranks of the sharded step on the one card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one card): rank 0's s/step and its
+    gathered state after 2 + 10 steps."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_gloo_card_rank, nprocs=world, join=True,
+                 args=(world, os.path.join(tmp, "store"), tmp, n))
+        return torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+
+
+#: device kernels of each wrapper, as a profiler trace names them
+KERNEL_SYMBOLS = {"rbf_gram": ("rbf_gram_kernel",),
+                  "rbf_predict_mean": ("rbf_predict_partial_kernel",
+                                       "rbf_predict_reduce_kernel")}
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: device operations by family, first match wins
+DEVICE_FAMILIES = (("hand-written (csrc)", ("rbf_",)),
+                   ("cuBLAS GEMM", ("gemm", "gemv")),
+                   ("cuSOLVER / cuBLAS factor and solve", ("potrf", "trsm", "syrk", "cusolver",
+                                                            "trsv", "getrf")),
+                   ("copies and fills", ("Memcpy", "Memset", "copy_kernel", "fill_kernel")),
+                   ("elementwise", ("elementwise_kernel",)),
+                   ("reductions", ("reduce_kernel",)))
+
+
+def _busy(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_breakdown(trace_path: str, top: int = 5) -> dict:
+    """From a chrome trace: the ``top`` device operations by summed time, the
+    device-busy share of the traced window (first to last event) and the
+    device kernels of each wrapper in ``KERNEL_SYMBOLS``."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    window = (max(e["ts"] + e.get("dur", 0) for e in events)
+              - min(e["ts"] for e in events))
+    device = [e for e in events if e.get("cat") in DEVICE_EVENTS]
+    by_name = {}
+    for e in device:
+        calls, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (calls + 1, us + e.get("dur", 0))
+    busy = _busy((e["ts"], e["ts"] + e.get("dur", 0)) for e in device)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    families = {}
+    for name, (c, us) in by_name.items():
+        family = next((f for f, keys in DEVICE_FAMILIES if any(k in name for k in keys)),
+                      "other")
+        calls, total = families.get(family, (0, 0.0))
+        families[family] = (calls + c, total + us)
+    return dict(
+        window_ms=window / 1e3, device_busy_ms=busy / 1e3,
+        device_busy_share=busy / window if window else 0.0,
+        device_ops=len(device), host_ops=len(events) - len(device),
+        top=[dict(name=name[:120], calls=c, ms=us / 1e3, share_of_busy=us / busy)
+             for name, (c, us) in ranked[:top]],
+        families={f: dict(calls=c, ms=us / 1e3, share_of_busy=us / busy if busy else 0.0)
+                  for f, (c, us) in sorted(families.items(), key=lambda kv: -kv[1][1])},
+        kernels={w: sorted({e["name"][:80] for e in device
+                            if any(sym in e["name"] for sym in syms)})
+                 for w, syms in KERNEL_SYMBOLS.items()})
+
+
+def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
+    """Phase 21: ``trajectory_config(n)`` with ``init_cache`` for PROFILE_TICKS
+    ticks, cold (written into a temporary cache), then again with
+    ``profile_dir``: restored from the cache (bit for bit the cold run), so
+    the trace holds the ticks, one scheduled reoptimization and the outputs,
+    not the initial Metropolis walk.  Prints the trace's top device
+    operations and the device-busy share of the traced window."""
+    import dataclasses
+    import os
+
+    from gple_tpu_torch import driver as TD
+    from gple_tpu_torch.entry import trajectory_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    cfg = dataclasses.replace(trajectory_config(n), init_cache=True)
+    before = os.environ.get(TD.INIT_CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[TD.INIT_CACHE_ENV] = os.path.join(tmp, "cache")
+        try:
+            cold = TD.GPLEDriver(cfg, device=device)
+            cold_hist = cold.run(max_ticks=PROFILE_TICKS)
+            drv = TD.GPLEDriver(cfg, device=device, profile_dir=os.path.join(tmp, "trace"))
+            logs = []
+            drv._log = logs.append
+            GK.reset_launches()
+            t0 = time.perf_counter()
+            hist = drv.run(max_ticks=PROFILE_TICKS)
+            wall = time.perf_counter() - t0
+            launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+            t1 = time.perf_counter()
+            breakdown = trace_breakdown(drv.trace_path)
+            breakdown.update(run_s=wall, parse_s=time.perf_counter() - t1,
+                             trace_mb=os.path.getsize(drv.trace_path) / 1e6,
+                             phase_times=drv.phase_times, launches=launches)
+        finally:
+            if before is None:
+                os.environ.pop(TD.INIT_CACHE_ENV, None)
+            else:
+                os.environ[TD.INIT_CACHE_ENV] = before
+    restored = any(line.startswith("init restored from cache") for line in logs)
+    same = len(hist) == len(cold_hist) and all(
+        np.array_equal(np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name)))
+        for a, b in zip(hist, cold_hist) for f in dataclasses.fields(a))
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        _leaves((drv.density, drv.extra, drv.gps)), _leaves((cold.density, cold.extra, cold.gps))))
+    log(f"profile N={n}, {PROFILE_TICKS} ticks restored={restored} records_bitwise={same} "
+        f"state_bitwise={same_state}: " + json.dumps(breakdown))
+    if not (restored and same and same_state):
+        raise AssertionError("profile: the restored run is not the cold run bit for bit")
+    if device == "cuda":   # the CPU (a rehearsal) takes the plain versions
+        missing = [w for w, names in breakdown["kernels"].items() if not names]
+        if missing:
+            raise AssertionError(f"profile: the trace names no device kernel of {missing}")
+        _check_path_launches("profile", launches)
+    return launches, by_shape, breakdown
+
+
 def kernel_summary(cases, paths, per):
     """One entry per kernel for the ``{"kernels": [...]}`` line.  ``launches``
     is the count of the kernel's main path: the trajectory phase for the
@@ -1463,6 +1735,10 @@ def main() -> int:
     cases += new_shapes_phase("booster", _keys(cases), boost_by_shape)
     ecr_launches, ecr_by_shape, _ = ecr_phase()
     cases += new_shapes_phase("ecr", _keys(cases), ecr_by_shape)
+    shard_launches, shard_by_shape, _ = sharding_phase()
+    prof_launches, prof_by_shape, _ = profile_phase()
+    cases += new_shapes_phase("sharding / profile", _keys(cases), shard_by_shape,
+                              prof_by_shape)
     paths = {"slice": (slice_launches, slice_by_shape),
              "trajectory": (traj_launches, traj_by_shape),
              "crossing": (cross_launches, cross_by_shape),
@@ -1470,7 +1746,9 @@ def main() -> int:
              "reference_parity": (rp_launches, rp_by_shape),
              "validation": (val_launches, val_by_shape),
              "booster": (boost_launches, boost_by_shape),
-             "ecr": (ecr_launches, ecr_by_shape)}
+             "ecr": (ecr_launches, ecr_by_shape),
+             "sharding": (shard_launches, shard_by_shape),
+             "profile": (prof_launches, prof_by_shape)}
 
     print(json.dumps({"kernels": kernel_summary(cases, paths, per)}))
     print(smi)

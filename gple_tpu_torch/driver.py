@@ -14,7 +14,7 @@ The reference main loop (``gaussian_process_liouville_equation/main.cpp:19-212``
    points (main.cpp:135-202)
 6. stop once <x> passes -x0 (main.cpp:195-200)
 
-Every ``GPLEConfig`` setting but ``init_cache`` is ported: the production
+Every ``GPLEConfig`` setting is ported: the production
 path -- the moment optimizer, the block-diagonal (corr = 0) complex fit, the
 raw-mean evolution distribution, cloud tracking, Metropolis re-tuning and
 the walk surrogate, element activation, the output files --; the
@@ -27,8 +27,12 @@ extra points join the coherence fit, with ``coh_len_div`` and the fit-health
 backoff and eject), the coherence-only cutoff (``evolve_cutoff="coh"``), the
 purity and population conservation rescales (``coh_boost_rescale``,
 ``pop_rescale``) and the relabel rules (``relabel_conserve``,
-``relabel_mask_coh``, ``coh_reselect``).  Where the JAX package's booster
-diverges, so does this one: the decisions are the same.
+``relabel_mask_coh``, ``coh_reselect``); and ``init_cache``, which saves
+the post-initialization state keyed by every other field and restores it on
+a repeat run (:meth:`GPLEDriver._init_cache_path`).  Where the JAX package's
+booster diverges, so does this one: the decisions are the same.
+``GPLEDriver(profile_dir=...)`` traces a run with ``torch.profiler``, as the
+JAX package's traces it with ``jax.profiler``.
 
 Everything runs as the JAX package's boundary-chunked loop: a chunk is a
 Python loop of :func:`_tick_core` with one host pull of its boundary
@@ -37,17 +41,19 @@ scalars, and a chunk ends at every scheduled reopt, output and checkpoint
 JAX package's ``.npz`` schema, :mod:`gple_tpu_torch.io.checkpoint`).
 
 Not ported, by design: the fused whole-segment scan with its rollback and
-replay, its event hints, the init cache and the persistent XLA cache.  They
-existed to hide ~0.2 s of remote-TPU dispatch latency per call; the chunked
-path makes the same decisions (``gple_tpu/driver.py:438-442``), so the fused
-path's copies of the flags (``:404-513``, ``:1354-1478``) have no
-counterpart here.
+replay, and the init cache's sidecar of event hints, which feeds only that
+scan (``gple_tpu/driver.py:649-661``, ``:1660-1680``).  The scan existed to
+hide ~0.2 s of remote-TPU dispatch latency per call; the chunked path makes
+the same decisions (``:438-442``), so the fused path's copies of the flags
+(``:404-513``, ``:1354-1478``) have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import os
 import time
 from functools import partial
 from typing import Callable, List, Optional
@@ -330,18 +336,28 @@ def _unported(cfg: GPLEConfig) -> List[str]:
     """The settings of ``cfg`` that the port's driver does not implement."""
     checks = (
         (cfg.opt_mode not in ("moment", "ladder"), f"opt_mode={cfg.opt_mode!r}"),
-        (cfg.init_cache, "init_cache (TPU machinery, not to port)"),
     )
     return [what for bad, what in checks if bad]
+
+
+#: the init cache's directory (GPLEConfig.init_cache); the environment
+#: variable of this name overrides it
+INIT_CACHE_ENV = "GPLE_TORCH_CACHE_DIR"
+_DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".gple_torch_cache")
 
 
 class GPLEDriver:
     """The trajectory driver.  ``device`` defaults to the CUDA card and raises
     where there is none; pass ``device="cpu"`` for the plain-PyTorch path.
-    ``rng`` is the root random key (default: ``RandomKeys(cfg.seed, device)``)."""
+    ``rng`` is the root random key (default: ``RandomKeys(cfg.seed, device)``).
+    ``profile_dir``: trace every :meth:`run` with ``torch.profiler`` (CPU
+    activity, and the card's where the driver runs on one) into a chrome
+    trace in that directory (``trace_path`` after the run; the profiler
+    itself stays in ``profiler`` for ``key_averages()``)."""
 
     def __init__(self, cfg: GPLEConfig, outdir: Optional[str] = None, verbose: bool = False,
-                 device="cuda", rng=None):
+                 device="cuda", rng=None, profile_dir: Optional[str] = None):
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError("GPLEDriver: not ported yet: " + "; ".join(missing))
@@ -386,6 +402,22 @@ class GPLEDriver:
         self._coh_div_eff = float(cfg.coh_len_div)
         #: the evolution distribution (GPLEConfig.evolve_cutoff)
         self._evolve_dist = _evolve_dist_for(cfg.evolve_cutoff)
+        self.profile_dir = profile_dir
+        self.profiler = None
+        self.trace_path: Optional[str] = None
+
+    def _init_cache_path(self) -> str:
+        """Path of the cached initialization state (GPLEConfig.init_cache),
+        keyed as the JAX package keys it: by EVERY config field but the cache
+        knob itself (any field could change the init walk, the first fit or
+        the random stream).  The device type joins the file name, because the
+        port's draws from one key differ between the CPU and the card."""
+        fields = dataclasses.asdict(self.cfg)
+        fields.pop("init_cache", None)
+        key = hashlib.sha1(repr(sorted(fields.items())).encode()).hexdigest()[:16]
+        d = os.path.join(os.environ.get(INIT_CACHE_ENV, _DEFAULT_CACHE_DIR), "init_states")
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"init_{key}_{self.device.type}.npz")
 
     def _log(self, msg):
         if self.verbose:
@@ -1007,25 +1039,64 @@ class GPLEDriver:
         state is written to ``checkpoint_path`` after every multiple of
         ``checkpoint_every``."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        if resume_from:
-            start = ckpt.load_checkpoint(resume_from, self) + 1
-            self.phase_times["init"] += time.perf_counter() - t0
-            self._log(f"resumed from {resume_from} at tick {start}")
-        else:
-            self.initialize()
-            self.phase_times["init"] += time.perf_counter() - t0
+        if self.profile_dir:
+            self._start_profiler()
+        try:
             t0 = time.perf_counter()
-            self.observe(0, self.opt_result.opt_type)
-            self.phase_times["output"] += time.perf_counter() - t0
-            start = 1
-        total = cfg.total_ticks if max_ticks is None else min(cfg.total_ticks, max_ticks)
-        every = checkpoint_every if checkpoint_path else 0
-        self._advance(start, total, callback, checkpoint_path, every)
+            if resume_from:
+                start = ckpt.load_checkpoint(resume_from, self) + 1
+                self.phase_times["init"] += time.perf_counter() - t0
+                self._log(f"resumed from {resume_from} at tick {start}")
+            else:
+                self._initialize_or_restore()
+                self.phase_times["init"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                self.observe(0, self.opt_result.opt_type)
+                self.phase_times["output"] += time.perf_counter() - t0
+                start = 1
+            total = cfg.total_ticks if max_ticks is None else min(cfg.total_ticks, max_ticks)
+            every = checkpoint_every if checkpoint_path else 0
+            self._advance(start, total, callback, checkpoint_path, every)
+        finally:
+            if self.profile_dir:
+                self._stop_profiler()
         self._log(f"phase wall times: {self.phase_times}")
         if self.writers:
             self.writers.close()
         return self.history
+
+    def _initialize_or_restore(self) -> None:
+        """:meth:`initialize`, or with ``GPLEConfig.init_cache`` the restore
+        of the state a cold run of the same config saved after it (written
+        here on a miss).  The restore refits from the saved clouds and
+        parameters, as the cold run did, so the run goes on bit for bit."""
+        path = self._init_cache_path() if self.cfg.init_cache else None
+        if path and os.path.exists(path):
+            ckpt.load_checkpoint(path, self)
+            # the cold run took its drift reference against the initial
+            # purity itself, not against the measured one a resume takes
+            self._fit_ref["target"] = max(float(self.purity), 1e-30)
+            self._log(f"init restored from cache {path}")
+            return
+        self.initialize()
+        if path:
+            ckpt.save_checkpoint(path, self, 0)
+
+    def _start_profiler(self) -> None:
+        os.makedirs(self.profile_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profiler = torch.profiler.profile(activities=activities)
+        self.profiler.start()
+
+    def _stop_profiler(self) -> None:
+        self._sync()
+        self.profiler.stop()
+        self.trace_path = os.path.join(
+            self.profile_dir, f"gple_trace_{os.getpid()}_{time.time_ns()}.json")
+        self.profiler.export_chrome_trace(self.trace_path)
+        self._log(f"profile trace written to {self.trace_path}")
 
     def _advance(self, tick: int, total: int, callback=None,
                  checkpoint_path: Optional[str] = None, checkpoint_every: int = 0):

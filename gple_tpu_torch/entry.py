@@ -128,3 +128,49 @@ def booster_config(n_points: int = 1024, seed: int = 0) -> GPLEConfig:
                       seed=seed, coh_fit_extra=n_points, coh_len_div=6.0, moment_per_tick="off",
                       evolve_cutoff="coh", coh_boost_rescale=True, pop_rescale=True,
                       relabel_conserve=True, relabel_mask_coh=True, coh_reselect=False)
+
+
+def _dryrun_rank(mesh, n_points: int) -> dict:
+    """One rank of :func:`dryrun_multichip`: one sharded step on its block."""
+    from gple_tpu_torch.parallel.sharding import shard_density, sharded_step_fn
+
+    # the same seed on every rank: every rank builds the same whole state
+    density, gps = example_state(n_points, mesh.device,
+                                 generator=torch.Generator().manual_seed(0))
+    step = sharded_step_fn("SAC", 2000.0, 1.0, mesh)
+    new_density, new_gps = step(shard_density(density, mesh), gps)
+    local = n_points // mesh.size
+    for name, t in (("points", new_density.points), ("rho", new_density.rho),
+                    ("p_re", new_gps.offdiag.p_re), ("alpha", new_gps.diag.alpha)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"dryrun_multichip: rank {mesh.rank}: non-finite {name}")
+    # the points really are split over the ranks ...
+    if new_density.points.shape[1] != local:
+        raise AssertionError(f"dryrun_multichip: rank {mesh.rank} holds "
+                             f"{new_density.points.shape[1]} points, not {local}")
+    # ... and so are the rows of the refit's (N, N) inverses
+    if tuple(new_gps.offdiag.p_re.shape) != (local, n_points):
+        raise AssertionError(f"dryrun_multichip: rank {mesh.rank} holds p_re "
+                             f"{tuple(new_gps.offdiag.p_re.shape)}, not {(local, n_points)}")
+    return dict(rank=mesh.rank, device=str(mesh.device), points=new_density.points.shape[1],
+                p_re_rows=new_gps.offdiag.p_re.shape[0])
+
+
+def dryrun_multichip(world_size: int, device: str = "cuda") -> None:
+    """The counterpart of ``__graft_entry__.dryrun_multichip``: spawn
+    ``world_size`` ranks (NCCL on ``cuda``, one card a rank; gloo on ``cpu``),
+    split 16 x ``world_size`` points over them, run one full sharded step
+    (evolve + refit, ``shard_refit=True``) and check that every output is
+    finite and that each rank holds its N/W points and N/W rows of the refit."""
+    from gple_tpu_torch.parallel.sharding import BACKENDS, spawn_ranks
+
+    if torch.device(device).type == "cuda" and world_size > torch.cuda.device_count():
+        raise RuntimeError(f"need {world_size} CUDA devices, have "
+                           f"{torch.cuda.device_count()}")
+    n_points = 16 * world_size
+    ranks = spawn_ranks(_dryrun_rank, world_size, device, (n_points,))
+    print(f"dryrun_multichip OK on {world_size} ranks "
+          f"({BACKENDS[torch.device(device).type]}, "
+          f"{', '.join(r['device'] for r in ranks)}): points split on dim 1, "
+          f"{ranks[0]['points']} of {n_points} a rank; refit p_re rows "
+          f"{ranks[0]['p_re_rows']} of {n_points} a rank", flush=True)

@@ -213,15 +213,17 @@ def test_short_run_files_match_jax_layout(short_run, gate):
     dict(coh_boost_rescale=True), dict(relabel_conserve=True), dict(relabel_mask_coh=True),
     dict(evolve_cutoff="coh"), dict(init_cache=True), dict(opt_mode="ladder", pop_rescale=True),
 ])
-def test_unported_settings_raise(setting):
-    """Of these settings, once all refused, only the init cache (TPU
-    machinery) still raises; the others construct, with their state."""
+def test_unported_settings_raise(setting, tmp_path, monkeypatch):
+    """These settings were once all refused; every one constructs now, with
+    its state (the init cache with its file keyed by the config)."""
     cfg = GPLEConfig(**setting)
-    if cfg.init_cache:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            GPLEDriver(cfg, device="cpu")
-        return
     drv = GPLEDriver(cfg, device="cpu")
+    if cfg.init_cache:
+        monkeypatch.setenv(TD.INIT_CACHE_ENV, str(tmp_path))
+        path = drv._init_cache_path()
+        assert os.path.dirname(path) == str(tmp_path / "init_states")
+        assert os.path.basename(path).startswith("init_") and path.endswith("_cpu.npz")
+        assert not os.path.exists(path)
     assert drv._coh_k == min(cfg.coh_fit_extra, cfg.num_extra_points)
     assert drv._track_moments == ("none" if not cfg.moment_per_tick else "all")
     assert drv._evolve_dist is TD._evolve_dist_for(cfg.evolve_cutoff)
