@@ -15,8 +15,9 @@ Phases (any failure raises and the script exits non-zero):
 4. agreement: one fit+evolve step at N = 256 on the GPU (kernels) against the
    same step on the CPU (plain versions);
 5. slice: at N = 1024, 2 warm-up + 10 timed ``make_step_fn`` steps and 5
-   ``_tick_core`` ticks with 5N extra points; every output finite and both
-   kernels launched by the main path;
+   ``_tick_core`` ticks with 5N extra points, as replays of one captured CUDA
+   graph (the first call captures); every output finite and both kernels
+   launched by the main path;
 6. trajectory: ``GPLEDriver(entry.trajectory_config(1024), outdir, "cuda")
    .run(max_ticks=40)`` -- the production Tully-A trajectory (initial
    Metropolis selection, 4 chunks + 4 scheduled reopts, 5 outputs with the
@@ -101,11 +102,26 @@ Phases (any failure raises and the script exits non-zero):
    kernels of ``rbf_gram`` and ``rbf_predict_mean``; prints the five device
    operations that took the most time, the time by family and the
    device-busy share of the traced window; then the kernels at the shapes
-   of phases 20-21 not seen before, as in phase 3.
+   of phases 20-21 not seen before, as in phase 3;
+22. graphs and the fused path: (a) ``trajectory_config(1024)`` initialized;
+   from its state 10 eager ticks of the tick graph's function
+   (``driver._tick_program``: ``_tick_core`` and the tick's row) against 10
+   replays of its graph, bit for bit (or within 1e-12 relative, should
+   cuBLAS pick another algorithm under capture); s/tick of both in turns,
+   the host's launch calls a tick of both, the device-busy share of a
+   traced window of 10 replays, the capture's wall and the graph pool's
+   memory; (b) ``run(max_ticks=200)`` without writers, ``fused_chunk`` 100
+   against 0 in turns (chunked, fused, fused, chunked): records 1e-6
+   relative, points 1e-7, rho 1e-6, keys and stats equal
+   (``tests/test_fused_trajectory.py``'s tolerances), the fused path taken;
+   (c) ``crossing_config()`` (N = 64) for 100 ticks with one-period fused
+   segments against the chunked run: a segment must run and one roll back,
+   and the records equal the chunked run's as in (b).
 
-Each of phases 5-7, 10, 11, 14, 16, 18, 20 and 21 resets the launch
-counters just before it and reads them just after; every forward kernel must
-have launched in each but 20, which must launch ``rbf_gram`` (its predicts
+Each of phases 5-7, 10, 11, 14, 16, 18, 20, 21 and 22 resets the launch
+counters just before it and reads them just after (a launch inside a CUDA
+graph counts at each replay); phases 6, 7 and 21 must have replayed the tick
+graph; every forward kernel must have launched in each but 20, which must launch ``rbf_gram`` (its predicts
 carry the variance, through a cross-Gram and cuBLAS), the two length VJP
 kernels in phases 10 and 11, and ``rbf_gram_vjp_points`` in phase 14.  The second-to-last
 lines are a JSON object ``{"kernels": [...]}`` and the ``nvidia-smi``
@@ -165,6 +181,13 @@ ECR_RMSE, ECR_POP = 1e-3, 0.02   # tests/test_ecr_parity.py
 TOL_SHARDED = 1e-12
 #: phase 21: ticks of the profiled trajectory
 PROFILE_TICKS = 10
+#: phase 22: graphed ticks against eager ticks; the fused run's and the fused
+#: crossing run's ticks, the crossing's segment length (one reopt period, so
+#: an event aborts one segment); tests/test_fused_trajectory.py's tolerances
+GRAPH_TICKS, FUSED_TICKS, FUSED_CROSS_TICKS, FUSED_CROSS_CHUNK = 10, 200, 100, 20
+TOL_FUSED_RECORD, TOL_FUSED_POINTS, TOL_FUSED_RHO = 1e-6, 1e-7, 1e-6
+#: runtime / driver calls that launch device work from the host
+HOST_LAUNCHES = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
 FORWARD = ("rbf_gram", "rbf_predict_mean")
 LENGTH_VJPS = ("rbf_gram_vjp", "rbf_predict_vjp")
 DVR_TABLE = Path(__file__).resolve().parent / "gple_tpu_torch" / "data" / "sac_crossing_dvr.json"
@@ -369,6 +392,7 @@ def slice_phase():
     from gple_tpu_torch import driver
     from gple_tpu_torch.entry import example_extra, example_state
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
     from gple_tpu_torch.parallel.sharding import make_step_fn
 
     gen = torch.Generator().manual_seed(0)
@@ -391,22 +415,34 @@ def slice_phase():
     pop_steps = gps.population().item()
     in_steps = dict(GK.LAUNCHES)
 
+    # the ticks as replays of one captured graph of _tick_core
+    state = GR.clone((density, extra, gps))
+    params = GR.clone((gps.diag.params, gps.offdiag.params))
+    small = torch.zeros(3, dtype=torch.bool, device="cuda")
+
+    def tick_fn():
+        d, e, sm, g = driver._tick_core(MODEL, MASS, DT, *state, *params,
+                                        driver.gp_dist_all_nocut, "none", 0, 2.0, True)
+        GR.copy_((state, small), ((d, e, g), sm))
+
+    graph = GR.Graph(tick_fn, (state, params, small))
     tick_s = []
     smalls = []
     for _ in range(TICKS):
         t0 = time.perf_counter()
-        density, extra, small, gps = driver._tick_core(
-            MODEL, MASS, DT, density, extra, gps, gps.diag.params, gps.offdiag.params,
-            driver.gp_dist_all_nocut, "none", 0, 2.0, True)
+        graph()
         torch.cuda.synchronize()
         tick_s.append(time.perf_counter() - t0)
         smalls.append(small.tolist())
     launches = dict(GK.LAUNCHES)
+    density, extra, gps = state
     pop1 = gps.population().item()
 
     log(f"slice N={N_SLICE}: s/step {s_step!r} (mean of {TIMED_STEPS} after "
         f"{WARMUP_STEPS} warm-up, host clock around synchronize)")
-    log(f"slice N={N_SLICE}: s/tick {sum(tick_s) / len(tick_s)!r} (each: {tick_s!r})")
+    log(f"slice N={N_SLICE}: s/tick {sum(tick_s[1:]) / (len(tick_s) - 1)!r} graph replays "
+        f"(each: {tick_s!r}; the first captures, {graph.capture_s!r} s, pool "
+        f"{graph.pool_bytes / 2**20:.1f} MiB)")
     log(f"slice N={N_SLICE}: population after steps {pop_steps!r}, after ticks {pop1!r}; "
         f"purity {gps.purity().item()!r}; is_very_small {smalls[-1]}")
     log(f"slice launches: {json.dumps(launches)} ({json.dumps(in_steps)} in the "
@@ -459,11 +495,24 @@ def _check_path_launches(phase: str, launches: dict, names=FORWARD):
             raise AssertionError(f"{phase}: kernel {name} was not launched")
 
 
+def _check_graphs(phase: str) -> dict:
+    """The CUDA graphs captured and replayed since the counters' reset: the
+    ticks of a phase that runs the driver went through the tick graph."""
+    from gple_tpu_torch.ops import graphs as GR
+
+    counts = dict(GR.COUNTS)
+    log(f"{phase} graphs: {json.dumps(counts)}")
+    if not counts["replays"] > 0:
+        raise AssertionError(f"{phase}: no CUDA graph was replayed")
+    return counts
+
+
 def trajectory_phase():
     """The production trajectory at TRAJ_N through ``GPLEDriver.run`` on the card."""
     from gple_tpu_torch.driver import GPLEDriver
     from gple_tpu_torch.entry import trajectory_config
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
 
     cfg = trajectory_config(TRAJ_N)
     calls = {}
@@ -472,6 +521,7 @@ def trajectory_phase():
         _instrument(drv, calls)
         torch.cuda.synchronize()
         GK.reset_launches()
+        GR.reset_counts()
         t0 = time.perf_counter()
         hist = drv.run(max_ticks=TRAJ_TICKS)
         torch.cuda.synchronize()
@@ -526,6 +576,7 @@ def trajectory_phase():
     if missing:
         raise AssertionError(f"trajectory: output files missing or empty: {missing}")
     _check_path_launches("trajectory", launches)
+    _check_graphs("trajectory")
     return launches, by_shape, per, walls
 
 
@@ -537,6 +588,7 @@ def crossing_phase():
     from gple_tpu_torch.entry import crossing_config, crossing_dvr_config
     from gple_tpu_torch.oracles import DVRSolver
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
 
     with open(DVR_TABLE) as f:
         table = json.load(f)
@@ -551,6 +603,7 @@ def crossing_phase():
     drv = GPLEDriver(crossing_config(), device="cuda")
     torch.cuda.synchronize()
     GK.reset_launches()
+    GR.reset_counts()
     t0 = time.perf_counter()
     hist = drv.run(max_ticks=CROSS_TICKS)
     torch.cuda.synchronize()
@@ -579,6 +632,7 @@ def crossing_phase():
     if not rmse < 0.055:
         raise AssertionError(f"crossing: RMSE vs DVR {rmse} >= 0.055")
     _check_path_launches("crossing", launches)
+    _check_graphs("crossing")
     return launches, by_shape, result
 
 
@@ -1590,6 +1644,7 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
     from gple_tpu_torch import driver as TD
     from gple_tpu_torch.entry import trajectory_config
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
 
     cfg = dataclasses.replace(trajectory_config(n), init_cache=True)
     before = os.environ.get(TD.INIT_CACHE_ENV)
@@ -1602,6 +1657,7 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
             logs = []
             drv._log = logs.append
             GK.reset_launches()
+            GR.reset_counts()
             t0 = time.perf_counter()
             hist = drv.run(max_ticks=PROFILE_TICKS)
             wall = time.perf_counter() - t0
@@ -1631,7 +1687,193 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
         if missing:
             raise AssertionError(f"profile: the trace names no device kernel of {missing}")
         _check_path_launches("profile", launches)
+        _check_graphs("profile")
     return launches, by_shape, breakdown
+
+
+def _host_launches(trace_path: str) -> dict:
+    """The host's launch calls in a chrome trace, by name (kernels, graphs,
+    copies and fills), and the device operations they ran."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    calls = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and any(
+                k in e["name"] for k in HOST_LAUNCHES):
+            calls[e["name"]] = calls.get(e["name"], 0) + 1
+    device = sum(1 for e in events if e.get("cat") in DEVICE_EVENTS)
+    return dict(calls=calls, total=sum(calls.values()), device_ops=device)
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _traced(fn, path: str, device: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    _sync(device)
+    with profile(activities=activities) as prof:
+        fn()
+        _sync(device)
+    prof.export_chrome_trace(path)
+
+
+def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
+    """Phase 22(a): ``trajectory_config(n)`` initialized; from its state,
+    GRAPH_TICKS eager ticks (the tick graph's function, ``_tick_program`` --
+    ``_tick_core`` and its row -- run eagerly) against as many replays of
+    its captured graph, bit for bit; s/tick of both in turns (eager, graph,
+    graph, eager); the host's launch calls per tick of each and the
+    device-busy share of a traced window of replays; the capture's wall and
+    the graph pool's memory.  ``device="cpu"`` rehearses it (the graph's
+    function runs eagerly there)."""
+    import os
+
+    from gple_tpu_torch import driver as TD
+    from gple_tpu_torch.entry import trajectory_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
+
+    drv = TD.GPLEDriver(trajectory_config(n), device=device)
+    drv.initialize()
+    S, tick, _ = drv._programs(drv._host_active())
+    drv._load(S)
+    tick()                                   # warm-up and capture, then one replay
+
+    def ticks(fn):
+        drv._load(S)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TICKS):
+            fn()
+        _sync(device)
+        return (time.perf_counter() - t0) / GRAPH_TICKS
+
+    with torch.inference_mode():
+        s_tick = {"eager": [ticks(tick.fn)]}
+        eager = GR.clone((S.density, S.extra, S.gps, S.rows))
+        GK.reset_launches()
+        s_tick["graph"] = [ticks(tick)]
+        launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+        graphed = GR.leaves((S.density, S.extra, S.gps, S.rows))
+        equal = all(torch.equal(a, b) for a, b in zip(graphed, GR.leaves(eager)))
+        err = max(_rel_err(a, b) for a, b in zip(graphed, GR.leaves(eager)))
+        s_tick["graph"].append(ticks(tick))
+        s_tick["eager"].append(ticks(tick.fn))
+        with tempfile.TemporaryDirectory() as tmp:
+            one = {}
+            for name, fn in (("eager", tick.fn), ("graph", tick)):
+                drv._load(S)
+                _traced(fn, os.path.join(tmp, f"{name}.json"), device)
+                one[name] = _host_launches(os.path.join(tmp, f"{name}.json"))
+            drv._load(S)
+            path = os.path.join(tmp, "window.json")
+            _traced(lambda: [tick() for _ in range(GRAPH_TICKS)], path, device)
+            window = trace_breakdown(path)
+            window["host_launches"] = _host_launches(path)
+    result = dict(n=n, ticks=GRAPH_TICKS, s_per_tick=s_tick, bitwise=equal, max_rel_err=err,
+                  capture_s=tick.capture_s, pool_mib=tick.pool_bytes / 2**20,
+                  launches_per_replay={f"{k[0]} {k[1]}": v for k, v in tick.launches.items()},
+                  host_launches_one_tick=one,
+                  graphed_window={k: window[k] for k in ("window_ms", "device_busy_ms",
+                                                         "device_busy_share", "device_ops",
+                                                         "host_launches", "families")})
+    log("graph: " + json.dumps(result))
+    # cuBLAS and cuSOLVER may pick other algorithms under capture; the
+    # replays must then stay within 1e-12 of the eager ticks, relative
+    if not (equal or err <= 1e-12):
+        raise AssertionError(f"graph: replays differ from the eager ticks by {err}")
+    if device == "cuda":
+        _check_path_launches("graph", launches)
+    return launches, by_shape, result
+
+
+def _compare_runs(phase: str, chunked, fused) -> dict:
+    """Records, points, rho and the random key of a fused run against the
+    chunked run (tests/test_fused_trajectory.py's tolerances)."""
+    (dc, hc), (df, hf) = chunked, fused
+    if len(hc) != len(hf) or any((a.time, a.opt_type) != (b.time, b.opt_type)
+                                 for a, b in zip(hc, hf)):
+        raise AssertionError(f"{phase}: the fused run's records differ in time or kind")
+    rec = max(_rel_err(torch.as_tensor(np.atleast_1d(getattr(b, f))),
+                       torch.as_tensor(np.atleast_1d(getattr(a, f))))
+              for a, b in zip(hc, hf)
+              for f in ("population_prm", "population_mci", "energy_mci", "purity_prm",
+                        "x_average"))
+    pts = (df.density.points - dc.density.points).abs().max().item()
+    rho = _rel_err(df.density.rho, dc.density.rho)
+    errs = dict(records=rec, points=pts, rho=rho, key_equal=df.rng.seed == dc.rng.seed,
+                stats_equal=df.stats == dc.stats)
+    if not (rec <= TOL_FUSED_RECORD and pts <= TOL_FUSED_POINTS and rho <= TOL_FUSED_RHO
+            and errs["key_equal"] and errs["stats_equal"]):
+        raise AssertionError(f"{phase}: the fused run differs from the chunked run: {errs}")
+    return errs
+
+
+def fused_phase(n: int = TRAJ_N, ticks: int = FUSED_TICKS,
+                cross_ticks: int = FUSED_CROSS_TICKS, device: str = "cuda"):
+    """Phase 22(b)-(c).  (b): ``trajectory_config(1024).run(FUSED_TICKS)``, no
+    writers, ``fused_chunk = 100`` against ``0``, in turns (chunked, fused,
+    fused, chunked): records, points and keys of the first pair against each
+    other, s/tick of each run (its wall less its initialization).  (c):
+    ``crossing_config()`` (N = 64, activations) for FUSED_CROSS_TICKS with
+    ``fused_chunk = FUSED_CROSS_CHUNK`` against ``0``: a segment must roll
+    back and the chunked path replay through its event, and the records
+    equal the chunked run's.  ``device="cpu"`` (and fewer ticks) rehearses it."""
+    import dataclasses
+
+    from gple_tpu_torch.driver import GPLEDriver
+    from gple_tpu_torch.entry import crossing_config, trajectory_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
+
+    def run(cfg, n_ticks):
+        drv = GPLEDriver(cfg, device=device)
+        GK.reset_launches()
+        GR.reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        hist = drv.run(max_ticks=n_ticks)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        info = dict(run_s=wall, s_per_tick=(wall - drv.phase_times["init"]) / n_ticks,
+                    phase_times=drv.phase_times, stats=drv.stats, graphs=dict(GR.COUNTS),
+                    launches=dict(GK.LAUNCHES))
+        return (drv, hist), info, dict(GK.LAUNCHES_BY_SHAPE)
+
+    base = trajectory_config(n)
+    runs = {}
+    for name, fc in (("chunked", 0), ("fused", 100), ("fused_2", 100), ("chunked_2", 0)):
+        runs[name] = run(dataclasses.replace(base, fused_chunk=fc), ticks)
+        log(f"fused N={n} {name}: " + json.dumps(runs[name][1]))
+    errs = _compare_runs("fused", runs["chunked"][0], runs["fused"][0])
+    (df, _), info, by_shape = runs["fused"]
+    result = dict(ticks=ticks, errors=errs,
+                  s_per_tick={k: v[1]["s_per_tick"] for k, v in runs.items()},
+                  fused_s=info["phase_times"]["fused"])
+    log("fused: " + json.dumps(result))
+    if not info["phase_times"]["fused"] > 0.0:
+        raise AssertionError("fused: the fused path was not taken")
+    if device == "cuda":
+        _check_path_launches("fused", info["launches"])
+
+    cross = {}
+    for name, fc in (("chunked", 0), ("fused", FUSED_CROSS_CHUNK)):
+        cross[name] = run(dataclasses.replace(crossing_config(), fused_chunk=fc),
+                          cross_ticks)
+        log(f"fused crossing {name}: " + json.dumps(cross[name][1]))
+    cerrs = _compare_runs("fused crossing", cross["chunked"][0], cross["fused"][0])
+    cinfo = cross["fused"][1]
+    log("fused crossing: " + json.dumps(dict(ticks=cross_ticks, errors=cerrs)))
+    if not (cinfo["phase_times"]["fused"] > 0.0 and cinfo["phase_times"]["fused_abort"] > 0.0):
+        raise AssertionError(f"fused crossing: no segment ran and rolled back: "
+                             f"{cinfo['phase_times']}")
+    if device == "cuda":
+        _check_path_launches("fused crossing", cinfo["launches"])
+    return info["launches"], by_shape, cinfo["launches"], cross["fused"][2], result
 
 
 def kernel_summary(cases, paths, per):
@@ -1737,8 +1979,11 @@ def main() -> int:
     cases += new_shapes_phase("ecr", _keys(cases), ecr_by_shape)
     shard_launches, shard_by_shape, _ = sharding_phase()
     prof_launches, prof_by_shape, _ = profile_phase()
-    cases += new_shapes_phase("sharding / profile", _keys(cases), shard_by_shape,
-                              prof_by_shape)
+    graph_launches, graph_by_shape, _ = graph_phase()
+    fused_launches, fused_by_shape, fcross_launches, fcross_by_shape, _ = fused_phase()
+    cases += new_shapes_phase("sharding / profile / graphs / fused", _keys(cases),
+                              shard_by_shape, prof_by_shape, graph_by_shape, fused_by_shape,
+                              fcross_by_shape)
     paths = {"slice": (slice_launches, slice_by_shape),
              "trajectory": (traj_launches, traj_by_shape),
              "crossing": (cross_launches, cross_by_shape),
@@ -1748,7 +1993,10 @@ def main() -> int:
              "booster": (boost_launches, boost_by_shape),
              "ecr": (ecr_launches, ecr_by_shape),
              "sharding": (shard_launches, shard_by_shape),
-             "profile": (prof_launches, prof_by_shape)}
+             "profile": (prof_launches, prof_by_shape),
+             "graph": (graph_launches, graph_by_shape),
+             "fused": (fused_launches, fused_by_shape),
+             "fused_crossing": (fcross_launches, fcross_by_shape)}
 
     print(json.dumps({"kernels": kernel_summary(cases, paths, per)}))
     print(smi)

@@ -88,13 +88,16 @@ class GPLEConfig:
     relabel_mask_coh: bool = False
     #: re-select the coherence cloud itself while the booster is alive
     coh_reselect: bool = True
-    #: whole-segment fusion length of the JAX package's fused scan (the port
-    #: always takes the boundary-chunked path, which makes the same decisions)
+    #: whole-segment fusion: ticks of a fused segment (rounded down to whole
+    #: reopt periods), run on the device with the scheduled reopts and one
+    #: host pull, rolled back on an event; 0 = the boundary-chunked path
+    #: (moment mode, no writers, checkpoints or coh_boost_rescale)
     fused_chunk: int = 100
     #: walk re-selection / seeding chains on a 256^2 grid surrogate of the
     #: backward-branching predictor (labels stay exact); 2D phase space only
     mc_walk_surrogate: bool = True
-    #: cache the initialization state on disk (JAX package only)
+    #: cache the initialization state on disk, with the event ticks beside it
+    #: (fusion hints)
     init_cache: bool = False
     #: run-for-run comparable to the reference: evolve_cutoff=True,
     #: purity_target="initial", corr pinned to 1, the constrained ladder

@@ -34,29 +34,39 @@ booster diverges, so does this one: the decisions are the same.
 ``GPLEDriver(profile_dir=...)`` traces a run with ``torch.profiler``, as the
 JAX package's traces it with ``jax.profiler``.
 
-Everything runs as the JAX package's boundary-chunked loop: a chunk is a
-Python loop of :func:`_tick_core` with one host pull of its boundary
-scalars, and a chunk ends at every scheduled reopt, output and checkpoint
-(``run``'s ``checkpoint_path`` / ``checkpoint_every`` / ``resume_from``, the
-JAX package's ``.npz`` schema, :mod:`gple_tpu_torch.io.checkpoint`).
-
-Not ported, by design: the fused whole-segment scan with its rollback and
-replay, and the init cache's sidecar of event hints, which feeds only that
-scan (``gple_tpu/driver.py:649-661``, ``:1660-1680``).  The scan existed to
-hide ~0.2 s of remote-TPU dispatch latency per call; the chunked path makes
-the same decisions (``:438-442``), so the fused path's copies of the flags
-(``:404-513``, ``:1354-1478``) have no counterpart here.
+The tick paths are the JAX package's one-dispatch programs, run on the
+card as replays of captured CUDA graphs (:mod:`gple_tpu_torch.ops.graphs`)
+and on the CPU as the same Python functions, eagerly: one definition of the
+tick (:func:`_tick_program` around :func:`_tick_core`) and one of a
+reoptimization period's end (:func:`_period_program`, with the device-side
+moment reopt :func:`_moment_reopt_core`).  :meth:`GPLEDriver.step` is one
+replay of the tick graph (``_tick_fused``), :meth:`GPLEDriver._advance_chunk`
+a chunk of replays with one host pull (``_ticks_scan``), and
+:meth:`GPLEDriver._advance_fused` a whole segment of periods, the scheduled
+moment reopts included, with one host pull, rolled back bit for bit on an
+event (``_ticks_scan_fused`` and ``_advance_fused``).  ``run``
+(:meth:`GPLEDriver._advance`) takes fused segments where the JAX package
+does -- the moment optimizer, ``fused_chunk > 0``, no writers, no
+checkpoints, no ``coh_boost_rescale`` -- with its abort hysteresis and, with
+``init_cache``, its event hints (:meth:`GPLEDriver._event_hints_path`);
+elsewhere the boundary-chunked loop: a chunk ends at every scheduled reopt,
+output and checkpoint (``run``'s ``checkpoint_path`` / ``checkpoint_every``
+/ ``resume_from``, the JAX package's ``.npz`` schema,
+:mod:`gple_tpu_torch.io.checkpoint`).  The draws a graph needs (the extra
+clouds' jitter at a scheduled reopt) are made before its replay from keys
+split in the host loop's order, so both paths consume one random stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import math
 import os
 import time
 from functools import partial
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,11 +81,16 @@ from gple_tpu_torch.gp.opt import (
     CORR_BOUND,
     INITIAL_NOISE,
     Optimizer,
+    OptResult,
+    _fit_once_diagnostics,
+    _wstd,
+    fit_data,
     moment_kernel_params,
 )
 from gple_tpu_torch.io import checkpoint as ckpt
 from gple_tpu_torch.io.writers import OutputWriters
 from gple_tpu_torch.ops import complex_kernels as CK
+from gple_tpu_torch.ops import graphs as GR
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.sampler import mc
 from gple_tpu_torch.sampler.keys import RandomKeys
@@ -86,6 +101,7 @@ from gple_tpu_torch.storage import (
     OFFDIAG_INDEX,
     Density,
     GPStates,
+    diag_rows,
     fit_gp_states,
     predict_all,
     predict_element,
@@ -192,18 +208,26 @@ def _fit_states_obs(coh_k: int, diag_params, off_params, density: Density,
     return gps, gps.population(), gps.purity()
 
 
+def _extra_noise(keys, n_extra: int, dim: int):
+    """The standard normal draws (n_extra, dim) of :func:`mc.jitter_points`
+    for each element's key, None where the key is None."""
+    return [k.normal((n_extra, dim)) if k is not None else None for k in keys]
+
+
 def _regen_extra_core(use_cutoff, coh_k: int, n_extra: int, density: Density,
-                      prev_extra: Density, gps: GPStates, keys) -> Density:
+                      prev_extra: Density, gps: GPStates, noise) -> Density:
     """Regenerate the extra clouds from a fresh fit (reference mc.cpp:59-120
-    via main.cpp:165-172): one key per active element (None for an inactive
-    one, whose cloud is its first point repeated with zero labels), and all
-    three clouds labeled by one :func:`predict_all` with the cutoff of the
+    via main.cpp:165-172): each active element's points jittered with its
+    draws ``noise[k]`` (:func:`_extra_noise`; None for an inactive element,
+    whose cloud is its first point repeated with zero labels), and all three
+    clouds labeled by one :func:`predict_all` with the cutoff of the
     ``GPLEConfig.evolve_cutoff`` mode ``use_cutoff`` -- one prediction for
     both diagonal elements and one for the coherence.  The booster's ``coh_k``
     coherence slots keep their carried points and evolved labels while the
-    coherence was and is active."""
+    coherence was and is active.  The draws are inputs, made beforehand, so
+    a CUDA graph can run this (:func:`_period_program`)."""
     pts = torch.stack([
-        mc.jitter_points(keys[k], density.points[k], n_extra) if keys[k] is not None
+        mc.jitter_with(noise[k], density.points[k]) if noise[k] is not None
         else density.points[k][:1].expand(n_extra, density.points.shape[-1])
         for k in range(NUM_ELEMENTS)])
     rho = predict_all(gps, pts, with_variance=use_cutoff is True,
@@ -223,13 +247,180 @@ def _reopt_epilogue(use_cutoff, coh_k: int, n_extra: int, density: Density,
                     block_diag: bool = False):
     """Everything after a reoptimization's parameter choice: refit the GP
     states from the (possibly re-selected) cloud and the booster slots of
-    ``prev_extra``, regenerate the extra clouds labeled by the fresh fit, and
-    the fit-reference integrals for the drift check.  Returns
-    ``(gps, extra, population, purity)``."""
+    ``prev_extra``, regenerate the extra clouds labeled by the fresh fit (one
+    key per element, None for an inactive one), and the fit-reference
+    integrals for the drift check.  Returns ``(gps, extra, population,
+    purity)``."""
     gps, pop, pur = _fit_states_obs(coh_k, diag_params, off_params, density, prev_extra,
                                     block_diag)
-    extra = _regen_extra_core(use_cutoff, coh_k, n_extra, density, prev_extra, gps, keys)
+    noise = _extra_noise(keys, n_extra, density.points.shape[-1])
+    extra = _regen_extra_core(use_cutoff, coh_k, n_extra, density, prev_extra, gps, noise)
     return gps, extra, pop, pur
+
+
+def _moment_reopt_core(coh_k: int, off_len_div: float, density: Density, extra: Density,
+                       diag_params, off_params, block_diag: bool = False):
+    """The moment reoptimization on the device (``gple_tpu/driver.py:333-387``),
+    the counterpart of the host's ``Optimizer._moment_impl`` + ``_finish`` +
+    ``fitted_params``: the moment lengths of the current clouds (the booster's
+    ``coh_k`` extra points joining the coherence's, its lengths over
+    ``off_len_div``), one diagnostics fit for the analytic magnitudes, and the
+    assembled parameters; an inactive element keeps its parameters.  A pure
+    function of tensors, so the period-end graph can reoptimize on schedule
+    without a host round trip.  Returns ``(diag KernelParams,
+    ComplexKernelParams, error)``."""
+    f64 = dict(dtype=density.points.dtype, device=density.points.device)
+    dmask = diag_rows(density.active)
+    dlens = torch.stack([_wstd(density.points[k], density.rho[k, :, 0])
+                         for k in DIAG_INDICES]) / 2.0
+    dlens = torch.where(dmask[:, None], dlens, diag_params.lengths)
+    o_pts, o_rho = density.points[OFFDIAG_INDEX], density.rho[OFFDIAG_INDEX]
+    oe = _off_extra_slice(extra, coh_k)
+    if oe is not None:
+        o_pts, o_rho = torch.cat([o_pts, oe[0]]), torch.cat([o_rho, oe[1]])
+    lr = _wstd(o_pts, o_rho[:, 0]) / off_len_div
+    li = _wstd(o_pts, o_rho[:, 1]) / off_len_div
+    mr = torch.sqrt(torch.mean(o_rho[:, 0] ** 2)) + 1e-30
+    mi = torch.sqrt(torch.mean(o_rho[:, 1] ** 2)) + 1e-30
+    new_flat = torch.cat([mr[None], lr, mi[None], li, torch.zeros(1, **f64)])
+    prev_flat = torch.cat([off_params.real_magnitude[None], off_params.real_lengths,
+                           off_params.imag_magnitude[None], off_params.imag_lengths,
+                           off_params.corr[None]])
+    act_o = density.active[OFFDIAG_INDEX]
+    off_flat = torch.where(act_o, new_flat, prev_flat)
+    err, mags, off_mag = _fit_once_diagnostics(dlens, off_flat, fit_data(density, extra),
+                                               block_diag)
+    d = dlens.shape[-1]
+    diag_new = RK.KernelParams(magnitude=torch.where(dmask, mags, 1.0), lengths=dlens,
+                               noise=torch.full((2,), INITIAL_NOISE, **f64))
+    off_new = CK.ComplexKernelParams(
+        magnitude=torch.where(act_o, off_mag, 1.0), real_magnitude=off_flat[0],
+        real_lengths=off_flat[1: 1 + d], imag_magnitude=off_flat[1 + d],
+        imag_lengths=off_flat[2 + d: 2 + 2 * d],
+        noise=torch.full((), INITIAL_NOISE, **f64), corr=off_flat[-1])
+    return diag_new, off_new, err
+
+
+# -- the graphed tick and period end ---------------------------------------------------
+
+#: the observables of one output (:func:`OBS.observe_all`) as a flat row: name, size
+_OBS_FIELDS = (("energies", 2), ("ppl_mci", 2), ("ppl_prm_each", 2), ("pop_prm", 1),
+               ("energy_prm", 1), ("energy_mci", 1), ("purity_prm", 1),
+               ("purity_mci_raw", 1), ("x_average", 1))
+_OBS_WIDTH = sum(size for _, size in _OBS_FIELDS)
+#: a tick's row: small (3), drift, target purity, population, purity and MC
+#: purity integrals, then the observables
+_SMALL, _DRIFT, _TARGET, _POP, _PUR, _MC_PUR, _OBS = 0, 3, 4, 5, 6, 7, 8
+_TICK_WIDTH = _OBS + _OBS_WIDTH
+#: a period end's row: re-selection flag, reopt error, population rescale,
+#: then the observables after the reopt
+_RESEL, _ERR, _POP_S, _OBS_LAST = 0, 1, 2, 3
+_PERIOD_WIDTH = _OBS_LAST + _OBS_WIDTH
+
+
+def _pack_obs(obs: dict):
+    return torch.cat([obs[name].reshape(-1).to(torch.float64) for name, _ in _OBS_FIELDS])
+
+
+def _unpack_obs(row) -> dict:
+    """:func:`_pack_obs`'s row (host) back to the dict of :meth:`GPLEDriver.observe`."""
+    out, at = {}, 0
+    for name, size in _OBS_FIELDS:
+        out[name] = row[at: at + size] if size > 1 else row[at]
+        at += size
+    return out
+
+
+class _Static(NamedTuple):
+    """The static tensors the tick and period-end graphs read and write."""
+
+    density: Density
+    extra: Density
+    gps: GPStates
+    diag_params: RK.KernelParams
+    off_params: CK.ComplexKernelParams
+    #: (6,) drift reference population, purity and target purity; MC purity
+    #: scale; fixed target purity; conserved population numerator
+    scalars: torch.Tensor
+    check: torch.Tensor      # (reopt_freq,) bool: the tick evaluates the drift trigger
+    counter: torch.Tensor    # () int64: ticks since the counter was reset
+    rows: torch.Tensor       # (reopt_freq, _TICK_WIDTH) the ticks' rows
+    draws: torch.Tensor      # (3, n_extra, D) the period's jitter draws
+    period: torch.Tensor     # (_PERIOD_WIDTH,) the period end's row
+
+
+def _tick_program(S: _Static, model: str, mass: float, dt: float, evolve_dist,
+                  track_moments: str, coh_k: int, coh_len_div: float, block_diag: bool,
+                  measured_target: bool) -> None:
+    """One tick on ``S`` in place, the body of the tick graph: :func:`_tick_core`
+    (the one definition of the tick), the new fit's population and purity
+    integrals, the MC purity, the target purity, the conservation-drift
+    trigger where ``S.check[S.counter]`` asks for it (the form of
+    :meth:`GPLEDriver._drift_detected`), and the observables, as row
+    ``S.counter`` of ``S.rows``; then the counter moves on.  The counterpart
+    of ``_tick_fused`` and of the tick of ``_ticks_scan_fused``
+    (``gple_tpu/driver.py:167-187``, ``:463-482``)."""
+    density, extra, small, gps = _tick_core(
+        model, mass, dt, S.density, S.extra, S.gps, S.diag_params, S.off_params,
+        evolve_dist, track_moments, coh_k, coh_len_div, block_diag)
+    obs = OBS.observe_all(model, density, gps, mass)
+    pop, pur, mc_pur = obs["pop_prm"], obs["purity_prm"], obs["purity_mci_raw"]
+    fpop, fpur, ftgt, pur_scale, fixed_target, _ = S.scalars
+    target = mc_pur * pur_scale if measured_target else fixed_target
+    tol = 2.0 * AVERAGE_TOLERANCE
+    ratio = pop / fpop
+    pop_ok = (ratio > 1.0 - tol) & (ratio < 1.0 + tol)
+    pur_cap = (1.0 + tol) * target * (fpur / ftgt)
+    index = S.counter.reshape(1)
+    check = torch.index_select(S.check, 0, index)[0]
+    drift = check & ((pur > pur_cap) | ~pop_ok)
+    row = torch.cat([small.to(torch.float64),
+                     torch.stack([drift.to(torch.float64), target, pop, pur, mc_pur]),
+                     _pack_obs(obs)])
+    S.rows.index_copy_(0, index, row[None])
+    S.counter.add_(1)
+    GR.copy_((S.density, S.extra, S.gps), (density, extra, gps))
+
+
+def _period_program(S: _Static, model: str, mass: float, use_cutoff, coh_k: int,
+                    coh_len_div: float, n_extra: int, measured_target: bool,
+                    pop_rescale: bool, block_diag: bool, active: tuple) -> None:
+    """The end of a reoptimization period on ``S`` in place, after its
+    ``len(S.check)`` ticks, the body of the period-end graph (the period of
+    ``_ticks_scan_fused``, ``gple_tpu/driver.py:484-504``): the cloud drift
+    flags, the population rescale of the diagonal labels
+    (``GPLEConfig.pop_rescale``), :func:`_moment_reopt_core`, the refit, the
+    extra clouds regenerated with the draws ``S.draws`` of the elements
+    ``active`` (static: a host tuple), the observables after the reopt, and
+    the new drift reference, into ``S.period`` and the state."""
+    density, extra = S.density, S.extra
+    f64 = dict(dtype=torch.float64, device=density.points.device)
+    resel = torch.any(_cloud_drift_flags(density))
+    _, _, _, pur_scale, _, pop_sum0 = S.scalars
+    target = S.rows[-1, _TARGET]
+    pop_s = torch.ones((), **f64)
+    if pop_rescale:
+        tot = torch.sum(diag_rows(density.rho)[..., 0])
+        s = pop_sum0 / torch.where(tot == 0.0, 1.0, tot)
+        pop_s = torch.where((tot > 0.0) & (s >= 0.5) & (s <= 2.0), s, 1.0)
+        factor = torch.stack([pop_s, torch.ones((), **f64), pop_s])
+        density = density._replace(rho=torch.stack(
+            [density.rho[..., 0] * factor[:, None], density.rho[..., 1]], dim=-1))
+        if measured_target:
+            target = torch.sum(OBS.purity_each_element(density)) * pur_scale
+    diag_params, off_params, err = _moment_reopt_core(
+        coh_k, coh_len_div, density, extra, S.diag_params, S.off_params, block_diag)
+    gps = fit_gp_states(diag_params, off_params, density,
+                        off_extra=_off_extra_slice(extra, coh_k), block_diag=block_diag)
+    noise = [S.draws[k] if active[k] else None for k in range(NUM_ELEMENTS)]
+    new_extra = _regen_extra_core(use_cutoff, coh_k, n_extra, density, extra, gps, noise)
+    obs = OBS.observe_all(model, density, gps, mass)
+    S.period.copy_(torch.cat([torch.stack([resel.to(torch.float64), err, pop_s]),
+                              _pack_obs(obs)]))
+    fit_ref = torch.stack([obs["pop_prm"], obs["purity_prm"], torch.clamp(target, min=1e-30)])
+    GR.copy_((S.density, S.extra, S.gps, S.diag_params, S.off_params),
+             (density, new_extra, gps, diag_params, off_params))
+    S.scalars[:3].copy_(fit_ref)
 
 
 #: walk-surrogate grid resolution per phase-space axis; 256 resolves the
@@ -375,10 +566,13 @@ class GPLEDriver:
                       if outdir else None)
         #: cumulative per-phase wall times; "optimize" is split into
         #: opt_reselect (cloud re-selection + MC re-tuning), opt_tune (moment
-        #: parameters) and opt_fit (refit + extra-point regeneration)
+        #: parameters) and opt_fit (refit + extra-point regeneration); "fused"
+        #: is whole segments (ticks and scheduled reopts on the device),
+        #: "fused_abort" the segments rolled back on an event
         self.phase_times = {
             "init": 0.0, "seed": 0.0, "evolve": 0.0, "optimize": 0.0, "output": 0.0,
             "opt_reselect": 0.0, "opt_tune": 0.0, "opt_fit": 0.0,
+            "fused": 0.0, "fused_abort": 0.0,
         }
         #: wall seconds of each initialization phase, in order
         self.init_marks: List[tuple] = []
@@ -405,6 +599,15 @@ class GPLEDriver:
         self.profile_dir = profile_dir
         self.profiler = None
         self.trace_path: Optional[str] = None
+        #: event ticks of this run (activations, drift reopts, aborted
+        #: segments), kept as fusion hints with the init cache
+        #: (:meth:`_event_hints_path`)
+        self._event_ticks = set()
+        #: (static arguments, _Static, tick graph, period-end graph) of the
+        #: live static arguments (:meth:`_programs`)
+        self._graphs = None
+        #: (density.active tensor, its host copy) (:meth:`_host_active`)
+        self._active_host = (None, None)
 
     def _init_cache_path(self) -> str:
         """Path of the cached initialization state (GPLEConfig.init_cache),
@@ -418,6 +621,15 @@ class GPLEDriver:
         d = os.path.join(os.environ.get(INIT_CACHE_ENV, _DEFAULT_CACHE_DIR), "init_states")
         os.makedirs(d, exist_ok=True)
         return os.path.join(d, f"init_{key}_{self.device.type}.npz")
+
+    def _event_hints_path(self) -> str:
+        """Beside :meth:`_init_cache_path`: the event ticks (activations, drift
+        reopts, re-selections) a previous run of this config met.  A run is
+        deterministic given its config, so the fused path replays the chunked
+        path through a recorded event instead of paying for a segment it
+        would roll back (``gple_tpu/driver.py:649-661``)."""
+        d, base = os.path.split(self._init_cache_path())
+        return os.path.join(d, base.replace("init_", "events_", 1).replace(".npz", ".json"))
 
     def _log(self, msg):
         if self.verbose:
@@ -572,35 +784,94 @@ class GPLEDriver:
         measured = mc_pur * purity_factor(self.cfg.dim) * self.purity_ratio
         return measured if self.cfg.purity_target == "measured" else self.purity
 
-    # -- a chunk of pure evolve ticks -----------------------------------------------
+    # -- the graphed tick -----------------------------------------------------------
+    def _programs(self, active, period: bool = False):
+        """``(S, tick, period_end)``: the static state and the graphs of
+        :func:`_tick_program` and (with ``period``) :func:`_period_program`
+        for the live static arguments -- the config's, the booster size, the
+        coherence divisor, the block-diagonal fit, the host's ``active``
+        tuple and every state shape.  When they change, the old graphs and
+        their memory are dropped and new ones are captured at their first
+        call (on the CPU they run eagerly)."""
+        cfg = self.cfg
+        active = tuple(bool(a) for a in active)
+        block_diag = self._block_diag()
+        measured = cfg.purity_target == "measured"
+        shapes = tuple(tuple(t.shape) for t in GR.leaves((self.density, self.extra, self.gps)))
+        key = (cfg.model, cfg.mass, cfg.dt, cfg.evolve_cutoff, self._track_moments,
+               self._coh_k, self._coh_div_eff, block_diag, measured, cfg.reopt_freq,
+               cfg.num_extra_points, bool(cfg.pop_rescale), active, shapes)
+        if self._graphs is None or self._graphs[0] != key:
+            self._graphs = None
+            dp, op = self.optimizer.fitted_params()
+            f64 = dict(dtype=torch.float64, device=self.device)
+            S = _Static(
+                *GR.clone((self.density, self.extra, self.gps, dp, op)),
+                scalars=torch.zeros(6, **f64),
+                check=torch.zeros(cfg.reopt_freq, dtype=torch.bool, device=self.device),
+                counter=torch.zeros((), dtype=torch.int64, device=self.device),
+                rows=torch.zeros((cfg.reopt_freq, _TICK_WIDTH), **f64),
+                draws=torch.zeros((NUM_ELEMENTS, cfg.num_extra_points,
+                                   self.density.points.shape[-1]), **f64),
+                period=torch.zeros(_PERIOD_WIDTH, **f64))
+            tick = GR.Graph(partial(
+                _tick_program, S, cfg.model, cfg.mass, cfg.dt, self._evolve_dist,
+                self._track_moments, self._coh_k, self._coh_div_eff, block_diag, measured),
+                S)
+            self._graphs = [key, S, tick, None]
+        S = self._graphs[1]
+        if period and self._graphs[3] is None:
+            self._graphs[3] = GR.Graph(partial(
+                _period_program, S, cfg.model, cfg.mass, cfg.evolve_cutoff, self._coh_k,
+                self._coh_div_eff, cfg.num_extra_points, measured, bool(cfg.pop_rescale),
+                block_diag, active), S)
+        return S, self._graphs[2], self._graphs[3]
+
+    def _host_active(self) -> np.ndarray:
+        """``density.active`` on the host, pulled only when the tensor changed."""
+        cached, host = self._active_host
+        if cached is not self.density.active:
+            host = self.density.active.cpu().numpy()
+            self._active_host = (self.density.active, host)
+        return host
+
+    def _load(self, S: _Static) -> None:
+        """Copy the driver's state, the optimizer's parameters and the drift
+        reference into ``S``; the counter and the drift checks start at 0."""
+        ref = self._fit_ref
+        GR.copy_((S.density, S.extra, S.gps, S.diag_params, S.off_params),
+                 (self.density, self.extra, self.gps, *self.optimizer.fitted_params()))
+        S.scalars.copy_(torch.tensor(
+            [ref["pop"], ref["pur"], ref["target"],
+             purity_factor(self.cfg.dim) * self.purity_ratio, self.purity,
+             getattr(self, "_pop_sum0", 0.0)], dtype=torch.float64))
+        S.check.zero_()
+        S.counter.zero_()
+
     @torch.inference_mode()
     def _advance_chunk(self, n_ticks: int) -> bool:
-        """Advance ``n_ticks`` ticks of :func:`_tick_core` and pull the chunk's
-        boundary scalars to the host once.
+        """Advance ``n_ticks`` ticks -- ``n_ticks`` replays of the tick graph
+        (``_ticks_scan``'s chunk, ``gple_tpu/driver.py:190-219``) -- and pull
+        the chunk's flags and boundary scalars to the host once.
 
         Returns False (state untouched) if an element activated mid-chunk --
         the caller then replays the chunk tick-by-tick through :meth:`step`.
         A conservation-drift check runs at the chunk end."""
-        cfg = self.cfg
         t0 = time.perf_counter()
-        diag_params, off_params = self.optimizer.fitted_params()
-        density, extra, gps = self.density, self.extra, self.gps
-        smalls = []
+        active = self._host_active()
+        S, tick, _ = self._programs(active)
+        self._load(S)
         for _ in range(n_ticks):
-            density, extra, small, gps = _tick_core(
-                cfg.model, cfg.mass, cfg.dt, density, extra, gps, diag_params, off_params,
-                self._evolve_dist, self._track_moments, self._coh_k, self._coh_div_eff,
-                self._block_diag())
-            smalls.append(small)
-        smalls, active, pop, pur, mc_pur = _pull(
-            torch.stack(smalls), self.density.active, gps.population(), gps.purity(),
-            torch.sum(OBS.purity_each_element(density)))
-        if np.any((smalls == 0) != (active[None, :] > 0)):
+            tick()
+        (rows,) = _pull(S.rows[:n_ticks])
+        smalls = rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
+        if np.any(~smalls != active[None, :]):
             return False
+        self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
+        self._active_host = (self.density.active, active)
         self.phase_times["evolve"] += time.perf_counter() - t0
-        self.density, self.extra, self.gps = density, extra, gps
-        target_purity = self._target_purity(float(mc_pur))
-        if self._drift_detected(float(pop), float(pur), target_purity):
+        target_purity = self._target_purity(float(rows[-1, _MC_PUR]))
+        if self._drift_detected(float(rows[-1, _POP]), float(rows[-1, _PUR]), target_purity):
             self._reoptimize(target_purity)
         return True
 
@@ -719,23 +990,26 @@ class GPLEDriver:
 
     # -- one tick (main.cpp:135-202) ------------------------------------------------
     @torch.inference_mode()
-    def step(self, tick: int) -> str:
+    def step(self, tick_no: int) -> str:
+        """Tick ``tick_no``: one replay of the tick graph, then the host's
+        decisions -- a new or vanished element (seeded or zeroed), the
+        scheduled reoptimization, the conservation-drift trigger."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        diag_params, off_params = self.optimizer.fitted_params()
-        density, extra, small, new_gps = _tick_core(
-            cfg.model, cfg.mass, cfg.dt, self.density, self.extra, self.gps,
-            diag_params, off_params, self._evolve_dist, self._track_moments, self._coh_k,
-            self._coh_div_eff, self._block_diag())
-        small, old_active, pop, pur, mc_pur = _pull(
-            small, density.active, new_gps.population(), new_gps.purity(),
-            torch.sum(OBS.purity_each_element(density)))
+        old_active = self._host_active()
+        S, tick, _ = self._programs(old_active)
+        self._load(S)
+        tick()
+        (row,) = _pull(S.rows[0])
+        density, extra, new_gps = GR.clone((S.density, S.extra, S.gps))
+        self._active_host = (density.active, old_active)
+        pop, pur, mc_pur = row[_POP], row[_PUR], row[_MC_PUR]
         self.phase_times["evolve"] += time.perf_counter() - t0
-        old_active = old_active > 0
-        new_active = small == 0
+        new_active = row[_SMALL:_SMALL + NUM_ELEMENTS] == 0
         opt_type = "none"
         changed = bool(np.any(new_active != old_active))
         if changed:
+            self._event_ticks.add(tick_no)
             self.stats["element_activations"] += int(np.sum(new_active & ~old_active))
             t_seed = time.perf_counter()
             density, extra = self._element_change(density, extra, old_active, new_active)
@@ -743,13 +1017,14 @@ class GPLEDriver:
             # the tick's MC purity predates the reseeding
             mc_pur = float(torch.sum(OBS.purity_each_element(density)))
         target_purity = self._target_purity(float(mc_pur))
-        needs_opt = changed or (tick % cfg.reopt_freq == 0)
+        needs_opt = changed or (tick_no % cfg.reopt_freq == 0)
         if not needs_opt:
             # drift check with the refitted states (main.cpp:174-189)
             self.density, self.extra, self.gps = density, extra, new_gps
             if self._drift_detected(float(pop), float(pur), target_purity):
                 needs_opt = True
                 opt_type = "drift"
+                self._event_ticks.add(tick_no)
         if needs_opt:
             self.density, self.extra = density, extra
             reopt_type = self._reoptimize(target_purity)
@@ -937,6 +1212,114 @@ class GPLEDriver:
         return (Density(points=pts, rho=rho, active=active),
                 Density(points=e_pts, rho=e_rho, active=active))
 
+    # -- a fused segment (scheduled reopts on the device) ------------------------------
+    @torch.inference_mode()
+    def _advance_fused(self, start_tick: int, n: int, callback=None):
+        """Advance ``n`` ticks -- whole reoptimization periods, the first right
+        after a scheduled reopt -- on the device with no host decision: per
+        period ``reopt_freq`` replays of the tick graph and one of the
+        period-end graph, the scheduled moment reopt included; then ONE host
+        pull of every tick's flags and observables (``_advance_fused`` of
+        ``gple_tpu/driver.py:1354-1476``).
+
+        Returns ``(ok, stopped)``.  ``ok`` is False when an event fired in the
+        segment -- an element activated or vanished, the conservation drift
+        triggered where the chunked path checks it, or a cloud asks for
+        re-selection -- and then every state the segment touched (density,
+        extra clouds, fits, random key, optimizer, drift reference) is rolled
+        back, bit for bit, and ``stopped`` is the first event's tick, up to
+        which the caller replays the chunked path.  Otherwise the records and
+        callbacks of the segment's outputs are made and ``stopped`` says
+        whether the packet left the interaction region.  The scheduled
+        reopts' keys are split in the order :meth:`_reoptimize` would take
+        them, and their jitter draws made before the first replay."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        opt = self.optimizer
+        rf = cfg.reopt_freq
+        n_periods = n // rf
+        snap = (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
+                opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
+                dict(self._fit_ref), self.opt_result)
+        ticks = np.arange(start_tick, start_tick + n)
+        reopt_mask = ticks % rf == 0
+        # the chunked path's drift checks: chunk ends and non-reopt boundaries
+        # (the period end reopts unconditionally)
+        in_b = (ticks % cfg.output_freq == 0) | reopt_mask
+        next_in_b = ((ticks + 1) % cfg.output_freq == 0) | ((ticks + 1) % rf == 0)
+        check_mask = (next_in_b | (in_b & ~reopt_mask)) & ~reopt_mask
+        active = self._host_active()
+        n_extra, dim = cfg.num_extra_points, self.density.points.shape[-1]
+        draws = torch.zeros((n_periods, NUM_ELEMENTS, n_extra, dim), dtype=torch.float64,
+                            device=self.device)
+        for p in range(n_periods):
+            for k in np.nonzero(active)[0]:
+                draws[p, k] = self._split().normal((n_extra, dim))
+        checks = torch.tensor(check_mask.reshape(n_periods, rf), device=self.device)
+        S, tick, period_end = self._programs(active, period=True)
+        self._load(S)
+        rows = []
+        for p in range(n_periods):
+            S.check.copy_(checks[p])
+            S.counter.zero_()
+            S.draws.copy_(draws[p])
+            for _ in range(rf):
+                tick()
+            period_end()
+            rows.append(torch.cat([S.rows.reshape(-1), S.period]))
+        host, fit_ref, *params = _pull(torch.stack(rows), S.scalars[:3],
+                                       *GR.leaves((S.diag_params, S.off_params)))
+        tick_rows = host[:, :rf * _TICK_WIDTH].reshape(n, _TICK_WIDTH)
+        period_rows = host[:, rf * _TICK_WIDTH:]
+        small = tick_rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
+        event = (~small != active[None, :]).any(axis=1) | (tick_rows[:, _DRIFT] > 0)
+        if cfg.track_clouds:
+            # the re-selection flags of the period ends (scheduled reopt ticks)
+            event[rf - 1::rf] |= period_rows[:, _RESEL] > 0
+        if event.any():
+            (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
+             opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
+             self._fit_ref, self.opt_result) = snap
+            self.phase_times["fused_abort"] += time.perf_counter() - t0
+            return False, int(ticks[np.argmax(event)])
+        self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
+        self._active_host = (self.density.active, active)
+        # the optimizer takes the last reopt's parameters, as the host reopt
+        # leaves them
+        dp = RK.KernelParams(*params[:3])
+        op = CK.ComplexKernelParams(*params[3:])
+        opt.diag_lengths, opt.diag_magnitudes = dp.lengths, dp.magnitude
+        opt.off_params = np.concatenate([[op.real_magnitude], op.real_lengths,
+                                         [op.imag_magnitude], op.imag_lengths, [op.corr]])
+        opt.off_magnitude = float(op.magnitude)
+        if opt._al_lam is None:
+            opt._al_lam = np.zeros((2, 3))
+        self._fit_ref = dict(zip(("pop", "pur", "target"), map(float, fit_ref)))
+        if cfg.pop_rescale:
+            applied = int(np.sum(np.abs(period_rows[:, _POP_S] - 1.0) > 1e-6))
+            if applied:
+                self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + applied
+        self.opt_result = OptResult(error=float(period_rows[-1, _ERR]),
+                                    steps=[opt.lbfgs_steps], opt_type="moment")
+        self.phase_times["fused"] += time.perf_counter() - t0
+        # the records of the segment's outputs; a period's last tick reports
+        # the observables after its reopt
+        t1 = time.perf_counter()
+        stopped = False
+        for i in np.nonzero(ticks % cfg.output_freq == 0)[0]:
+            obs = (period_rows[i // rf, _OBS_LAST:] if reopt_mask[i]
+                   else tick_rows[i, _OBS:])
+            rec = self._record_from_obs(int(ticks[i]), _unpack_obs(obs),
+                                        "moment" if reopt_mask[i] else "none")
+            if callback is not None:
+                callback(rec)
+            if rec.x_average > -cfg.x0:
+                self._log("wavepacket has left the interaction region")
+                stopped = True
+                break
+        self.phase_times["output"] += time.perf_counter() - t1
+        return True, stopped
+
     # -- observation / output ---------------------------------------------------------
     @torch.inference_mode()
     def observe(self, tick: int, opt_type: str) -> TickRecord:
@@ -1031,13 +1414,12 @@ class GPLEDriver:
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             resume_from: Optional[str] = None) -> List[TickRecord]:
         """Initialize (or restore ``resume_from``, a checkpoint of either
-        package), then advance in boundary-aligned chunks: every tick up to
-        the next scheduled reopt, output or checkpoint is one
-        :meth:`_advance_chunk` (replayed through :meth:`step` when an element
-        activates inside it), and the boundary tick itself goes through
-        :meth:`step`.  With ``checkpoint_path`` and ``checkpoint_every``, the
-        state is written to ``checkpoint_path`` after every multiple of
-        ``checkpoint_every``."""
+        package), then advance to ``max_ticks`` (:meth:`_advance`): fused
+        segments where they may run, else boundary-aligned chunks.  With
+        ``checkpoint_path`` and ``checkpoint_every``, the state is written to
+        ``checkpoint_path`` after every multiple of ``checkpoint_every``.  With
+        ``GPLEConfig.init_cache``, the event ticks go to the hints file
+        beside the cache (:meth:`_event_hints_path`)."""
         cfg = self.cfg
         if self.profile_dir:
             self._start_profiler()
@@ -1056,7 +1438,8 @@ class GPLEDriver:
                 start = 1
             total = cfg.total_ticks if max_ticks is None else min(cfg.total_ticks, max_ticks)
             every = checkpoint_every if checkpoint_path else 0
-            self._advance(start, total, callback, checkpoint_path, every)
+            hints = self._event_hints_path() if cfg.init_cache and not resume_from else None
+            self._advance(start, total, callback, checkpoint_path, every, hints)
         finally:
             if self.profile_dir:
                 self._stop_profiler()
@@ -1099,37 +1482,95 @@ class GPLEDriver:
         self._log(f"profile trace written to {self.trace_path}")
 
     def _advance(self, tick: int, total: int, callback=None,
-                 checkpoint_path: Optional[str] = None, checkpoint_every: int = 0):
-        """The loop of :meth:`run` from ``tick`` to ``total`` (inclusive)."""
+                 checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+                 hints_path: Optional[str] = None):
+        """The loop of :meth:`run` from ``tick`` to ``total`` (inclusive),
+        ``gple_tpu/driver.py:1629-1749``.
+
+        Fused segments (:meth:`_advance_fused`) run where they may: the moment
+        optimizer, ``fused_chunk > 0``, no writers, no checkpoints and no
+        ``coh_boost_rescale`` (its rescale is not in the period end).  A
+        segment is ``fused_chunk`` ticks rounded down to whole reopt periods
+        and starts right after a scheduled reopt.  After an aborted segment,
+        segments are one period long until two in a row run clean (the abort
+        hysteresis), and the chunked path replays through the event.  Event
+        ticks recorded in ``hints_path`` (:meth:`_event_hints_path`) by an
+        earlier run block the segments that hold them; this run's event ticks
+        are added to the file at the end.
+
+        The chunked path: every tick up to the next scheduled reopt, output or
+        checkpoint is one :meth:`_advance_chunk` (replayed through
+        :meth:`step` when an element activates inside it), and the boundary
+        tick itself goes through :meth:`step`."""
         cfg = self.cfg
+        rf = cfg.reopt_freq
 
         def next_multiple(t: int, k: int) -> int:
             return ((t + k - 1) // k) * k if k else total
 
-        while tick <= total:
-            # the next tick where the host must intervene: scheduled reopt,
-            # output or checkpoint; everything before it is one chunk
-            boundary = min(next_multiple(tick, cfg.reopt_freq),
-                           next_multiple(tick, cfg.output_freq),
-                           next_multiple(tick, checkpoint_every), total)
-            n_pre = boundary - tick
-            # only the steady-state chunk length is chunked, as in the JAX
-            # package; odd remainders go tick by tick
-            canonical = n_pre == min(cfg.output_freq, cfg.reopt_freq) - 1
-            if not (n_pre > 0 and canonical and self._advance_chunk(n_pre)):
-                for t in range(tick, boundary):
-                    self.step(t)
-            tick = boundary
-            opt_type = self.step(tick)
-            if checkpoint_every and tick % checkpoint_every == 0:
-                ckpt.save_checkpoint(checkpoint_path, self, tick)
-            if tick % cfg.output_freq == 0:
-                t0 = time.perf_counter()
-                rec = self.observe(tick, opt_type)
-                self.phase_times["output"] += time.perf_counter() - t0
-                if callback is not None:
-                    callback(rec)
-                if rec.x_average > -cfg.x0:
-                    self._log("wavepacket has left the interaction region")
-                    break
-            tick += 1
+        use_fused = (cfg.opt_mode == "moment" and cfg.fused_chunk > 0
+                     and self.writers is None and not checkpoint_every
+                     and not cfg.coh_boost_rescale)
+        n_fused = max(1, cfg.fused_chunk // rf) * rf
+        seg_len, clean_streak = n_fused, 0
+        event_hints = set()
+        if hints_path and os.path.exists(hints_path):
+            try:
+                with open(hints_path) as f:
+                    event_hints = set(json.load(f))
+                self._log(f"fusion event hints: {sorted(event_hints)}")
+            except (OSError, ValueError):
+                event_hints = set()
+        fused_block_until = 0    # the chunked path replays up to this event tick
+        try:
+            while tick <= total:
+                if (use_fused and tick > fused_block_until and (tick - 1) % rf == 0
+                        and tick + seg_len - 1 <= total):
+                    hinted = [h for h in event_hints if tick <= h < tick + seg_len]
+                    if hinted:
+                        fused_block_until = min(hinted)
+                    else:
+                        ok, res = self._advance_fused(tick, seg_len, callback)
+                        if ok:
+                            tick += seg_len
+                            clean_streak += 1
+                            if clean_streak >= 2:
+                                seg_len = n_fused
+                            if res:
+                                break
+                            continue
+                        fused_block_until = res
+                        self._event_ticks.add(res)
+                        seg_len, clean_streak = rf, 0
+                # the next tick where the host must intervene: scheduled
+                # reopt, output or checkpoint; everything before it is one chunk
+                boundary = min(next_multiple(tick, rf), next_multiple(tick, cfg.output_freq),
+                               next_multiple(tick, checkpoint_every), total)
+                n_pre = boundary - tick
+                # only the steady-state chunk length is chunked, as in the JAX
+                # package; odd remainders go tick by tick
+                canonical = n_pre == min(cfg.output_freq, rf) - 1
+                if not (n_pre > 0 and canonical and self._advance_chunk(n_pre)):
+                    for t in range(tick, boundary):
+                        self.step(t)
+                tick = boundary
+                opt_type = self.step(tick)
+                if checkpoint_every and tick % checkpoint_every == 0:
+                    ckpt.save_checkpoint(checkpoint_path, self, tick)
+                if tick % cfg.output_freq == 0:
+                    t0 = time.perf_counter()
+                    rec = self.observe(tick, opt_type)
+                    self.phase_times["output"] += time.perf_counter() - t0
+                    if callback is not None:
+                        callback(rec)
+                    if rec.x_average > -cfg.x0:
+                        self._log("wavepacket has left the interaction region")
+                        break
+                tick += 1
+        finally:
+            if hints_path and self._event_ticks:
+                try:
+                    with open(hints_path, "w") as f:
+                        json.dump(sorted({int(t) for t in event_hints | self._event_ticks}), f)
+                except OSError:
+                    pass

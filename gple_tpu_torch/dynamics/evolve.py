@@ -36,8 +36,20 @@ _FORCE_WEIGHTS = ((2.0, 0.0), (1.0, 1.0), (0.0, 2.0))
 _GAP_WEIGHTS = ((0.0, 0.0), (-1.0, 1.0), (0.0, 0.0))
 
 
+#: the weight tables as tensors, by (table, dtype, device)
+_TABLES: dict = {}
+
+
 def _table(values, like):
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    """``values`` as a tensor of ``like``'s dtype and device, made once: a
+    CUDA graph cannot capture the host-to-device copy of a new tensor.  Made
+    outside any inference mode, so autograd may read it too."""
+    key = (values, like.dtype, like.device)
+    table = _TABLES.get(key)
+    if table is None:
+        with torch.inference_mode(False):
+            table = _TABLES[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return table
 
 
 def is_coupling(model: str, x, p, mass, dt, criterion: float = 0.0):

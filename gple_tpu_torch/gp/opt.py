@@ -51,7 +51,7 @@ import torch
 
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
-from gple_tpu_torch.storage import DIAG_INDICES, OFFDIAG_INDEX, Density
+from gple_tpu_torch.storage import DIAG_INDICES, OFFDIAG_INDEX, Density, diag_rows
 
 #: relative tolerance of the conservation checks (reference opt.h:13)
 AVERAGE_TOLERANCE = 0.05
@@ -108,7 +108,7 @@ def moment_kernel_params(density: Density, prev_diag: "RK.KernelParams",
         lens = torch.stack([_wstd(density.points[k], density.rho[k, :, 0])
                             for k in DIAG_INDICES]) / 2.0
         diag = prev_diag._replace(lengths=torch.where(
-            density.active[_DIAG][:, None], lens, prev_diag.lengths))
+            diag_rows(density.active)[:, None], lens, prev_diag.lengths))
     else:
         diag = prev_diag
     o_pts, o_rho = density.points[OFFDIAG_INDEX], density.rho[OFFDIAG_INDEX]
@@ -683,6 +683,25 @@ def _fit_once_diagnostics(diag_lengths, off_flat, data, block_diag: bool = False
     return err, RK.optimal_magnitude(dstates), CK.optimal_magnitude_complex(ostate)
 
 
+def fit_data(density: Density, extra: Density) -> dict:
+    """The fit data of the losses and diagnostics: both diagonal elements'
+    points and real labels and their extra points (``d*``), the coherence's
+    (``o*``), and the activity masks as floats."""
+    dtype = density.points.dtype
+    return dict(
+        dpts=diag_rows(density.points),
+        drho=diag_rows(density.rho)[..., 0],
+        depts=diag_rows(extra.points),
+        derho=diag_rows(extra.rho)[..., 0],
+        opts=density.points[OFFDIAG_INDEX],
+        orho=density.rho[OFFDIAG_INDEX],
+        oepts=extra.points[OFFDIAG_INDEX],
+        oerho=extra.rho[OFFDIAG_INDEX],
+        dmask=diag_rows(density.active).to(dtype),
+        omask=density.active[OFFDIAG_INDEX].to(dtype),
+    )
+
+
 def _host(*tensors):
     """Host numpy copies of device tensors, through one device-to-host copy."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors]).cpu().numpy()
@@ -769,20 +788,7 @@ class Optimizer:
         the ladder's length bounds and constraint targets too (from one host
         copy of the points) when ``opt_mode="ladder"``."""
         active = density.active.cpu().numpy()
-        dtype = density.points.dtype
-        data = dict(
-            dpts=density.points[_DIAG],
-            drho=density.rho[_DIAG][..., 0],
-            depts=extra.points[_DIAG],
-            derho=extra.rho[_DIAG][..., 0],
-            opts=density.points[OFFDIAG_INDEX],
-            orho=density.rho[OFFDIAG_INDEX],
-            oepts=extra.points[OFFDIAG_INDEX],
-            oerho=extra.rho[OFFDIAG_INDEX],
-            dmask=density.active[_DIAG].to(dtype),
-            omask=density.active[OFFDIAG_INDEX].to(dtype),
-            energies=surface_energies,
-        )
+        data = dict(fit_data(density, extra), energies=surface_energies)
         if self.opt_mode == "ladder":
             pts = density.points.cpu().numpy()
             dlb, dub = zip(*(self.length_bounds(pts[k]) for k in DIAG_INDICES))
@@ -793,7 +799,8 @@ class Optimizer:
                 olb=np.concatenate([[COMPLEX_MAG_LB], olb, [COMPLEX_MAG_LB], olb, [lo]]),
                 oub=np.concatenate([[COMPLEX_MAG_UB], oub, [COMPLEX_MAG_UB], oub, [hi]]),
                 targets=np.array([1.0, self.total_energy, self.purity]))
-            data.update({k: torch.tensor(v, dtype=dtype, device=density.points.device)
+            data.update({k: torch.tensor(v, dtype=density.points.dtype,
+                                         device=density.points.device)
                          for k, v in host.items()})
         return data, active
 

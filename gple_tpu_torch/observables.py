@@ -12,16 +12,14 @@ from __future__ import annotations
 import torch
 
 from gple_tpu_torch.models import tully
-from gple_tpu_torch.storage import DIAG_INDICES, OFFDIAG_INDEX, Density
+from gple_tpu_torch.storage import Density, diag_rows
 from gple_tpu_torch.utils import ri
-
-_DIAG = list(DIAG_INDICES)
 
 
 def population_each_surface(density: Density):
     """Normalized per-surface populations (predict.cpp:65-87)."""
-    sums = torch.sum(density.rho[_DIAG, :, 0], dim=1)
-    sums = torch.where(density.active[_DIAG], sums, 0.0)
+    sums = torch.sum(diag_rows(density.rho[..., 0]), dim=1)
+    sums = torch.where(diag_rows(density.active), sums, 0.0)
     return sums / torch.sum(sums)
 
 
@@ -39,33 +37,33 @@ def standard_deviation_one_element(points):
 
 
 def r_average_all_surfaces(density: Density):
-    w = density.rho[_DIAG, :, 0]
-    w = torch.where(density.active[_DIAG][:, None], w, 0.0)
-    num = torch.einsum("end,en->d", density.points[_DIAG], w)
+    w = diag_rows(density.rho[..., 0])
+    w = torch.where(diag_rows(density.active)[:, None], w, 0.0)
+    num = torch.einsum("end,en->d", diag_rows(density.points), w)
     return num / torch.sum(w)
 
 
 def _surface_energy_terms(model: str, density: Density, mass):
     """(e (2, N), w (2, N)): per-point total energy on each surface and the
     point's population weight."""
-    pts = density.points[_DIAG]
+    pts = diag_rows(density.points)
     v = tully.adiabatic_potential(model, pts[..., 0])               # (2, N, 2)
     pot = torch.stack([v[0, :, 0], v[1, :, 1]])
     e = pts[..., 1] ** 2 / (2.0 * mass) + pot
-    return e, density.rho[_DIAG, :, 0]
+    return e, diag_rows(density.rho[..., 0])
 
 
 def total_energy_each_surface(model: str, density: Density, mass):
     """Population-weighted mean total energy per surface (predict.cpp:157-190)."""
     e, w = _surface_energy_terms(model, density, mass)
     energies = torch.sum(e * w, dim=1) / torch.sum(w, dim=1)
-    return torch.where(density.active[_DIAG], energies, 0.0)
+    return torch.where(diag_rows(density.active), energies, 0.0)
 
 
 def total_energy_all_surfaces(model: str, density: Density, mass):
     """Single population-weighted energy over all surfaces (predict.cpp:192-220)."""
     e, w = _surface_energy_terms(model, density, mass)
-    w = torch.where(density.active[_DIAG][:, None], w, 0.0)
+    w = torch.where(diag_rows(density.active)[:, None], w, 0.0)
     return torch.sum(e * w) / torch.sum(w)
 
 
@@ -92,4 +90,4 @@ def purity_each_element(density: Density):
     the off-diagonal twice like the reference."""
     sums = torch.sum(ri.abs2(density.rho), dim=1)
     sums = torch.where(density.active, sums, 0.0)
-    return torch.stack([sums[[0, OFFDIAG_INDEX]], sums[[OFFDIAG_INDEX, 2]]])
+    return torch.stack([sums[:2], sums[1:]])

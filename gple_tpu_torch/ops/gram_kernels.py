@@ -32,7 +32,9 @@ kernel to the plain version.  The raw launchers (``*_cuda``) refuse a tensor
 that requires grad while grad mode is on: the only way to differentiate
 through a kernel is its Function.  Every kernel launch adds one to
 :data:`LAUNCHES` and to its shape's entry in :data:`LAUNCHES_BY_SHAPE`, so a
-run can show that its path went through the kernels, and at which shapes.
+run can show that its path went through the kernels, and at which shapes; a
+launch inside a CUDA graph counts at each replay of the graph, not at its
+capture (:func:`count_launches`).
 
 The entry points take batched operands whose leading dimensions broadcast:
 ``lengths (..., D)``, ``xa (..., Na, D)``, ``xb (..., Nb, D)``, ``alpha
@@ -93,6 +95,16 @@ def _count_launch(name: str, shape: tuple) -> None:
     LAUNCHES[name] += 1
     key = (name, shape)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
+def count_launches(by_shape: dict, times: int = 1) -> None:
+    """Add ``times`` x the launches ``by_shape`` ((kernel, shape) -> count) to
+    the counters: a CUDA graph's replay launches what its capture recorded
+    (:mod:`gple_tpu_torch.ops.graphs`), and the capture itself launches none."""
+    for (name, shape), n in by_shape.items():
+        LAUNCHES[name] += n * times
+        key = (name, shape)
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n * times
 
 
 # -- plain PyTorch versions (the CPU path and the on-card reference) -------------

@@ -1,8 +1,11 @@
 """Positive-definite linear algebra: the interface of :mod:`gple_tpu.ops.linalg`.
 
 Every inverse is the direct Cholesky inverse, the JAX package's CPU branch
-(``_direct_inverse``): batched ``torch.linalg.cholesky_ex`` and
-``torch.cholesky_inverse``, then symmetrisation.  A matrix that is not
+(``_direct_inverse``): batched ``torch.linalg.cholesky_ex``, then
+``torch.cholesky_inverse`` on the CPU and, on the card, the two triangular
+solves of the JAX package's ``cho_solve`` (``torch.cholesky_inverse`` there
+syncs with the host, which a CUDA graph cannot capture), then
+symmetrisation.  A matrix that is not
 positive definite gives NaN, as the JAX package's Cholesky does, instead of
 an error: the constrained ladder's losses map NaN to a large value and move
 on, and no host sync checks the factorization.  The warm-start variants
@@ -24,7 +27,15 @@ import torch
 def _direct_inverse(k):
     chol, info = torch.linalg.cholesky_ex(k)
     chol = torch.where((info == 0)[..., None, None], chol, float("nan"))
-    kinv = torch.cholesky_inverse(chol)
+    if chol.device.type == "cuda":
+        # cho_solve(chol, I), the JAX package's formula: two triangular
+        # solves.  ``torch.cholesky_inverse`` on the card checks its info on
+        # the host, a sync that a CUDA graph cannot capture (ops/graphs.py)
+        eye = torch.eye(k.shape[-1], dtype=k.dtype, device=k.device).expand(k.shape)
+        lower = torch.linalg.solve_triangular(chol, eye, upper=False)
+        kinv = torch.linalg.solve_triangular(chol.transpose(-1, -2), lower, upper=True)
+    else:
+        kinv = torch.cholesky_inverse(chol)
     return 0.5 * (kinv + kinv.transpose(-1, -2))
 
 

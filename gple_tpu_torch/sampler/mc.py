@@ -221,11 +221,18 @@ def element_monte_carlo(key, dist_fn, dist_params, pts, params: MCParameters, tu
 def jitter_points(key, pts, n_extra: int):
     """``n_extra`` points: the cloud's points in turn plus per-dimension
     N(0, std) noise (the unlabeled half of :func:`generate_extra_points_element`)."""
+    return jitter_with(key.normal((n_extra, pts.shape[-1])), pts)
+
+
+def jitter_with(noise, pts):
+    """:func:`jitter_points` with its standard normal draws ``noise``
+    (n_extra, D) made beforehand, as a CUDA graph needs them: no draw is made
+    here."""
     n = pts.shape[0]
     std = torch.sqrt(torch.clamp(
         torch.mean(pts**2, dim=0) - torch.mean(pts, dim=0) ** 2, min=0.0))
-    base = pts[torch.arange(n_extra, device=pts.device) % n]
-    return base + key.normal(base.shape) * std
+    base = pts[torch.arange(noise.shape[0], device=pts.device) % n]
+    return base + noise * std
 
 
 def generate_extra_points_element(key, pts, n_extra: int, dist_fn, dist_params):

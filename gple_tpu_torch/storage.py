@@ -43,6 +43,14 @@ DIAG_INDICES = (0, 2)     # positions of (0,0) and (1,1) in ELEMENTS
 OFFDIAG_INDEX = 1         # position of (1,0)
 
 
+def diag_rows(x):
+    """``x[list(DIAG_INDICES)]``, a copy: the two diagonal elements' rows of
+    the first axis, gathered without an index list.  An index list is copied
+    from the host to the device on every call, which a CUDA graph cannot
+    capture (:mod:`gple_tpu_torch.ops.graphs`)."""
+    return torch.stack([x[k] for k in DIAG_INDICES])
+
+
 class Density(NamedTuple):
     """All sampled phase-space points.
 
@@ -86,7 +94,7 @@ class GPStates(NamedTuple):
     active: torch.Tensor  # (3,) same convention as Density.active
 
     def _diag_mask(self):
-        return self.active[list(DIAG_INDICES)]
+        return diag_rows(self.active)
 
     def population(self):
         return torch.sum(self.population_each())
@@ -128,9 +136,8 @@ def fit_gp_states(
     only (the booster, GPLEConfig.coh_fit_extra).  Diagonal lengths are
     (2, D) vectors or (2, D, D) characteristic matrices (full ARD, whose Grams
     take transformed points in a launch of their own)."""
-    diag_idx = list(DIAG_INDICES)
-    diag_pts = density.points[diag_idx]                  # (2, N, D)
-    diag_rho = density.rho[diag_idx, :, 0]
+    diag_pts = diag_rows(density.points)                 # (2, N, D)
+    diag_rho = diag_rows(density.rho[..., 0])
     off_pts = density.points[OFFDIAG_INDEX]              # (N, D)
     off_rho = density.rho[OFFDIAG_INDEX]
     if off_extra is not None:
@@ -210,7 +217,7 @@ def predict_all(gps: GPStates, pts3, with_variance: bool = True,
     cutoff ``off_with_variance`` defaults to ``with_variance``."""
     if off_with_variance is None:
         off_with_variance = with_variance
-    _, _, diag_cut = RK.predict_real(gps.diag, pts3[list(DIAG_INDICES)], with_variance)
+    _, _, diag_cut = RK.predict_real(gps.diag, diag_rows(pts3), with_variance)
     _, _, off_cut = CK.predict_complex(gps.offdiag, pts3[OFFDIAG_INDEX], off_with_variance)
     out = torch.stack([ri.ri(diag_cut[0]), off_cut, ri.ri(diag_cut[1])])
     return torch.where(gps.active[:, None, None], out, 0.0)

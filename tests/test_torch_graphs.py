@@ -1,0 +1,73 @@
+"""PyTorch port: the CUDA graph helper (``gple_tpu_torch/ops/graphs.py``).
+
+On the CPU a ``Graph`` runs its function eagerly, and ``copy_`` (the copy
+of a function's results into its static state) reads every source before
+it writes.  On the card (``gpu``): ten replays of the captured tick graph
+against ten eager ``_tick_core`` ticks from the same state, bit for bit,
+with the hand-written kernels' launches counted at every replay.  This file
+imports no JAX, so it also runs where only the port is installed:
+``python -m pytest --noconftest tests/test_torch_graphs.py``.
+"""
+
+import pytest
+import torch
+
+from gple_tpu_torch import driver as TD
+from gple_tpu_torch.ops import graphs as GR
+from test_torch_kernels import _warm_torch_exp, cuda_device  # noqa: F401 (fixtures)
+
+
+def test_copy_reads_sources_before_writing():
+    a, b = torch.tensor([1.0]), torch.tensor([2.0])
+    GR.copy_((a, b), (b, a))      # a swap: both copies read the old values
+    assert (a.item(), b.item()) == (2.0, 1.0)
+    with pytest.raises(ValueError):
+        GR.copy_(torch.zeros(3), torch.zeros(1))
+
+
+def test_clone_keeps_the_tree():
+    density = TD.Density(points=torch.ones(3, 2, 2), rho=torch.zeros(3, 2, 2),
+                         active=torch.tensor([True, False, True]))
+    twin = GR.clone(density)
+    assert isinstance(twin, TD.Density) and twin.points is not density.points
+    assert all(torch.equal(a, b) for a, b in zip(GR.leaves(twin), GR.leaves(density)))
+    assert len(GR.leaves({"x": (density, [torch.zeros(1)])})) == 4
+
+
+def test_cpu_graph_runs_eagerly():
+    state = torch.zeros(2)
+    graph = GR.Graph(lambda: state.add_(1.0), state)
+    graph()
+    graph()
+    assert state.tolist() == [2.0, 2.0] and graph.graph is None
+
+
+@pytest.mark.gpu
+def test_graph_replays_match_eager_ticks(cuda_device):
+    """Ten graphed ticks of ``trajectory_config(64)`` against ten eager
+    :func:`_tick_core` calls from the same state, bit for bit, and the
+    kernel launches counted at every replay."""
+    from gple_tpu_torch.entry import trajectory_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    drv = TD.GPLEDriver(trajectory_config(64), device=cuda_device)
+    drv.initialize()
+    dp, op = drv.optimizer.fitted_params()
+    density, extra, gps = drv.density, drv.extra, drv.gps
+    for _ in range(10):
+        density, extra, _, gps = TD._tick_core(
+            drv.cfg.model, drv.cfg.mass, drv.cfg.dt, density, extra, gps, dp, op,
+            drv._evolve_dist, "none", 0, 2.0, True)
+    S, tick, _ = drv._programs(drv._host_active())
+    drv._load(S)
+    tick()                       # captures, then replays once
+    drv._load(S)
+    GK.reset_launches()
+    for _ in range(10):
+        tick()
+    per_replay = sum(n for (name, _), n in tick.launches.items() if name == "rbf_gram")
+    assert tick.graph is not None and per_replay > 0
+    assert GK.LAUNCHES["rbf_gram"] == 10 * per_replay
+    for ours, theirs in zip(GR.leaves((S.density, S.extra, S.gps)),
+                            GR.leaves((density, extra, gps))):
+        assert torch.equal(ours, theirs)
