@@ -116,13 +116,32 @@ Phases (any failure raises and the script exits non-zero):
    (``tests/test_fused_trajectory.py``'s tolerances), the fused path taken;
    (c) ``crossing_config()`` (N = 64) for 100 ticks with one-period fused
    segments against the chunked run: a segment must run and one roll back,
-   and the records equal the chunked run's as in (b).
+   and the records equal the chunked run's as in (b);
+23. walks (``walk_phase``): from an initialized ``entry.parity_config("SAC",
+   1024)``, the tuned initial walk and a tuned surrogate re-selection walk of
+   element (0, 0), each on one key through the straight loop and through the
+   chain graphs (``sampler/mc.py``) in turns: walls, host launch calls of a
+   traced walk of each, capture wall and pool; bit for bit, graph replays,
+   and the graphed walk's host launches below 1% of the eager walk's; then
+   ``tests/test_torch_graphs.py``'s failed-capture test in its own process
+   (a chain whose distribution pulls to the host must raise);
+24. the reference band (``band_phase``): each row of ``entry.PARITY_ROWS``
+   (SAC N = 1024, ECR, SAC and DAC at N = 256) run whole with
+   ``GPLEDriver(entry.parity_config(model, N)).run()`` to its stop condition,
+   against the port's reflective DVR on the card held to the committed table
+   ``gple_tpu_torch/data/parity_dvr.json`` (1e-8): ground-state population
+   RMSE by both estimators (``benchmarks/parity.py``'s alignment), mci within
+   the row's limit, every record finite, an element activation, the packet
+   gone; then the kernels at the shapes of phases 23-24 not seen before, as
+   in phase 3.
 
-Each of phases 5-7, 10, 11, 14, 16, 18, 20, 21 and 22 resets the launch
-counters just before it and reads them just after (a launch inside a CUDA
-graph counts at each replay); phases 6, 7 and 21 must have replayed the tick
-graph; every forward kernel must have launched in each but 20, which must launch ``rbf_gram`` (its predicts
-carry the variance, through a cross-Gram and cuBLAS), the two length VJP
+Each of phases 5-7, 10, 11, 14, 16, 18, 20-22 and each walk and row of 23-24
+resets the launch counters just before it and reads them just after (a
+launch inside a CUDA graph counts at each replay); phases 6, 7, 21 and 24
+must have replayed graphs; every forward kernel must have launched in each
+but 20, which must launch ``rbf_gram`` (its predicts
+carry the variance, through a cross-Gram and cuBLAS), and 23, which must
+launch ``rbf_predict_mean`` (the re-selection's labels), the two length VJP
 kernels in phases 10 and 11, and ``rbf_gram_vjp_points`` in phase 14.  The second-to-last
 lines are a JSON object ``{"kernels": [...]}`` and the ``nvidia-smi``
 name/power line; the last line is ``{"ok": true, "device": {...}}``.  TF32 is
@@ -186,6 +205,13 @@ PROFILE_TICKS = 10
 #: an event aborts one segment); tests/test_fused_trajectory.py's tolerances
 GRAPH_TICKS, FUSED_TICKS, FUSED_CROSS_TICKS, FUSED_CROSS_CHUNK = 10, 200, 100, 20
 TOL_FUSED_RECORD, TOL_FUSED_POINTS, TOL_FUSED_RHO = 1e-6, 1e-7, 1e-6
+#: phase 23: the tuned initial walk and a surrogate re-selection walk of the
+#: SAC whole run at N = WALK_N, eager against graphed in turns on one key;
+#: the graphed walk's host launches must stay below WALK_LAUNCH_SHARE of the
+#: eager walk's
+WALK_N, WALK_SEED, WALK_LAUNCH_SHARE = 1024, 9, 0.01
+#: phase 24: the JAX package's DVR populations of the reference band's rows
+PARITY_TABLE = Path(__file__).resolve().parent / "gple_tpu_torch" / "data" / "parity_dvr.json"
 #: runtime / driver calls that launch device work from the host
 HOST_LAUNCHES = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
 FORWARD = ("rbf_gram", "rbf_predict_mean")
@@ -618,6 +644,7 @@ def crossing_phase():
                   final_population_mci=hist[-1].population_mci.tolist(),
                   max_population_deviation=pop_dev, stats=drv.stats,
                   active=drv.density.active.tolist(), phase_times=drv.phase_times,
+                  chains=_chains_info(drv._chains),
                   init_marks=dict(drv.init_marks))
     log("crossing: " + json.dumps(result))
     log(f"crossing launches: {json.dumps(launches)}")
@@ -921,8 +948,14 @@ def new_shapes_phase(what: str, known, *by_shapes):
     """Phases 8, 12 and 15: phase 3's checks and times at every (kernel,
     shape) that the ``what`` phases launched (``by_shapes``, their
     ``LAUNCHES_BY_SHAPE``) and no earlier phase checked (``known``)."""
+    import gc
+
     from gple_tpu_torch.ops import kernel_bench as KB
 
+    # the plain versions need room: free what the phases before left to the
+    # collector (their drivers' graph pools among it)
+    gc.collect()
+    torch.cuda.empty_cache()
     keys = set().union(*by_shapes)
     grams, predicts, vjps = KB.cases_from_launches(keys, what, known=known)
     cases = kernel_phase(grams, predicts, vjps)
@@ -1293,6 +1326,7 @@ def booster_phase():
                                                  "coh_len_backoffs", "coh_boost_ejected")}
     result = dict(n=BOOST_N, k=cfg.coh_fit_extra, ticks=BOOST_TICKS, walls=walls,
                   init_marks=dict(drv.init_marks), phase_times=drv.phase_times,
+                  chains=_chains_info(drv._chains),
                   counters=counters, stats=drv.stats, coh_div_eff=drv._coh_div_eff,
                   coherence_points_at_outputs=coh_points, launches=launches)
     log(f"booster N={BOOST_N}: " + json.dumps(result))
@@ -1427,7 +1461,8 @@ def ecr_phase():
     result = dict(n=ECR_N, ticks=ECR_TICKS, run_s=wall, records=len(hist), compared=n_cmp,
                   rmse_vs_dvr=rmse, max_population_deviation=pop_dev,
                   final_population_mci=hist[-1].population_mci.tolist(), stats=drv.stats,
-                  phase_times=drv.phase_times, dvr_outputs=len(dvr.times))
+                  phase_times=drv.phase_times,
+                  chains=_chains_info(drv._chains), dvr_outputs=len(dvr.times))
     log("ecr: " + json.dumps(result))
     if not (rmse < ECR_RMSE and pop_dev < ECR_POP and len(hist) > 1):
         raise AssertionError(f"ecr: RMSE {rmse} or population deviation {pop_dev}")
@@ -1791,6 +1826,203 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
     return launches, by_shape, result
 
 
+def _chains_info(chains) -> dict:
+    """A :class:`mc.Chains`'s programs, graphs, capture wall and pool."""
+    return dict(programs=len(chains.programs), graphs=len(chains.graphs()),
+                capture_s=chains.capture_s, pool_mib=chains.pool_bytes / 2**20)
+
+
+def walk_phase(n: int = WALK_N, device: str = "cuda"):
+    """Phase 23: from an initialized ``entry.parity_config("SAC", n)`` driver,
+    (a) the tuned initial walk of element (0, 0) (the initial distribution,
+    as ``initialize`` walks it) and (b) one tuned re-selection walk of the
+    same element on its walk surrogate (as ``_track_clouds`` walks it), each
+    on one key through the straight loop (``chains=None``) and the graphs
+    (one ``mc.Chains``, so the second graphed walk replays the first's
+    captures) in turns: eager, graph, graph, eager.  Prints the walls, the
+    host's launch calls of one walk of each route (a traced walk), the
+    capture's wall and the pool, and checks the graphed walks equal the
+    eager ones bit for bit, replay graphs, and launch from the host below
+    ``WALK_LAUNCH_SHARE`` of the eager walk's calls; then that a failed
+    capture raises (a test in a process of its own).  The path's kernel
+    launches are counted over the graphed walks alone (reset just before
+    each, read just after); the eager walks' are logged apart.
+    ``device="cpu"`` rehearses it (the graphs' functions run eagerly)."""
+    import os
+
+    from gple_tpu_torch import driver as TD
+    from gple_tpu_torch.entry import parity_config
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
+    from gple_tpu_torch.sampler import mc
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    drv = TD.GPLEDriver(parity_config("SAC", n), device=device)
+    drv.initialize()
+    cfg = drv.cfg
+
+    def f64(v):
+        return torch.tensor(np.asarray(v, dtype=np.float64), device=device)
+
+    init_params = (f64(cfg.r0), f64(cfg.sigma_r0), f64(cfg.initial_population),
+                   f64(cfg.initial_phase_factor))
+    start = f64(cfg.r0)[None, :].expand(n, 2)
+    with torch.inference_mode():
+        gps = drv._relabel_gps(drv.density, drv.extra)
+        surrogate = drv._walk_surrogate(gps, 0, drv.density, drv.extra)
+    walks = {
+        "initial": lambda key, chains: mc.element_monte_carlo(
+            key, TD.INIT_DIST_ELEMS[0], init_params, start, mc.MCParameters(), tune=True,
+            chains=chains),
+        "reselect": lambda key, chains: mc.element_monte_carlo(
+            key, drv._new_pt_dists[0], gps, drv.density.points[0], mc.MCParameters(),
+            tune=True, walk=surrogate, chains=chains),
+    }
+    launches, by_shape, results = {}, {}, {}
+    for name, walk in walks.items():
+        routes = {"eager": None, "graph": mc.Chains()}
+
+        def once(route):
+            with torch.inference_mode():
+                p, r, params = walk(RandomKeys(WALK_SEED, device), routes[route])
+            return p, r, (params.num_steps, params.displacement)
+
+        walls, outs, eager_launches = {}, {}, {}
+        GR.reset_counts()
+        for route in ("eager", "graph", "graph", "eager"):
+            _sync(device)
+            GK.reset_launches()
+            t0 = time.perf_counter()
+            outs.setdefault(route, []).append(once(route))
+            _sync(device)
+            walls.setdefault(route, []).append(time.perf_counter() - t0)
+            # only the graphed walks count for the path
+            pairs = ((launches, GK.LAUNCHES), (by_shape, GK.LAUNCHES_BY_SHAPE))
+            for total, counted in (pairs if route == "graph" else
+                                   ((eager_launches, GK.LAUNCHES),)):
+                for k, v in counted.items():
+                    total[k] = total.get(k, 0) + v
+        counts = dict(GR.COUNTS)
+        bitwise = all(a[2] == b[2] and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                      for a in outs["graph"] + outs["eager"][1:] for b in outs["eager"][:1])
+        host = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for route in ("eager", "graph"):
+                path = os.path.join(tmp, f"{route}.json")
+                _traced(lambda: once(route), path, device)
+                host[route] = _host_launches(path)
+        share = host["graph"]["total"] / max(host["eager"]["total"], 1)
+        results[name] = dict(n=n, walls=walls, bitwise=bitwise, graphs=counts,
+                             params=outs["graph"][0][2], host_launches=host,
+                             eager_kernel_launches=eager_launches,
+                             host_launch_share=share, chains=_chains_info(routes["graph"]))
+        log(f"walk {name}: " + json.dumps(results[name]))
+        if not bitwise:
+            raise AssertionError(f"walk {name}: the graphed walk differs from the eager walk")
+        if device == "cuda" and not (counts["replays"] > 0 and share < WALK_LAUNCH_SHARE):
+            raise AssertionError(f"walk {name}: graphs {counts}, host launch share {share}")
+    if device == "cuda":
+        _check_path_launches("walks", launches, names=("rbf_predict_mean",))
+        # a capture that fails raises (in its own process: a failed capture
+        # may leave the context unusable)
+        probe = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+             "-m", "gpu", "-k", "failed_chain_capture_raises", "tests/test_torch_graphs.py"],
+            capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+        tail = probe.stdout.strip().splitlines()[-1:] or ["(no output)"]
+        log(f"walks: a failed capture: {tail[0]}")
+        if probe.returncode != 0 or "1 passed" not in tail[0]:
+            raise AssertionError(f"walks: the failed-capture test did not pass:\n"
+                                 f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+    return launches, by_shape, results
+
+
+def band_phase(rows=None, device: str = "cuda"):
+    """Phase 24: the reference band's whole trajectories (``entry.PARITY_ROWS``:
+    SAC N = 1024, ECR, SAC and DAC at N = 256), each
+    ``GPLEDriver(entry.parity_config(model, N)).run()`` to its stop condition
+    (no writers, so the fused segments with their event hints, the config's
+    seed) against the port's reflective DVR on the card, held to the JAX
+    package's table ``gple_tpu_torch/data/parity_dvr.json`` to 1e-8; the
+    ground-state population RMSE by both estimators (``entry.parity_rmse``,
+    ``benchmarks/parity.py``'s rules), mci within the row's limit (1.5x the
+    reference's round-5 RMSE), every record finite, at least one element
+    activation.  Prints each row's wall, phase walls, RMSEs, frames compared,
+    activations, re-selections and walk graphs.  ``rows`` and ``device="cpu"``
+    rehearse it at a small N."""
+    from gple_tpu_torch.driver import GPLEDriver
+    from gple_tpu_torch.entry import PARITY_ROWS, dvr_config_for, parity_config, parity_rmse
+    from gple_tpu_torch.oracles import DVRSolver
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import graphs as GR
+
+    with open(PARITY_TABLE) as f:
+        table = json.load(f)
+    dvrs, launches, by_shape, results = {}, {}, {}, []
+    for model, n, limit in (PARITY_ROWS if rows is None else rows):
+        if model not in dvrs:
+            t0 = time.perf_counter()
+            dvr = DVRSolver(dvr_config_for(parity_config(model, n)), device).run(
+                store_wigner=False)
+            dvr_s = time.perf_counter() - t0
+            err = float(np.max(np.abs(dvr.populations
+                                      - np.array(table[model]["populations"]))))
+            log(f"band {model}: the port's DVR in {dvr_s!r} s, {len(dvr.times)} outputs, "
+                f"max |populations - table| {err!r}")
+            if not (np.array_equal(dvr.times, table[model]["times"]) and err <= TOL_DVR_TABLE):
+                raise AssertionError(f"band {model}: the port's DVR differs from the table: "
+                                     f"{err}")
+            dvrs[model] = dvr
+        cfg = parity_config(model, n)
+        drv = GPLEDriver(cfg, device=device)
+        _sync(device)
+        GK.reset_launches()
+        GR.reset_counts()
+        t0 = time.perf_counter()
+        hist = drv.run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        for k, v in GK.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in GK.LAUNCHES_BY_SHAPE.items():
+            by_shape[k] = by_shape.get(k, 0) + v
+        rmse = parity_rmse(hist, dvrs[model].times, dvrs[model].populations)
+        result = dict(model=model, n=n, run_s=wall, ticks=int(round(hist[-1].time / cfg.dt)),
+                      records=len(hist), limit_mci=limit, **rmse,
+                      phase_times=drv.phase_times, init_marks=dict(drv.init_marks),
+                      stats=drv.stats, mc_params=[(p.num_steps, p.displacement)
+                                                  for p in drv.mc_params],
+                      graphs=dict(GR.COUNTS), chains=_chains_info(drv._chains),
+                      launches=dict(GK.LAUNCHES),
+                      final_population_mci=hist[-1].population_mci.tolist(),
+                      final_x=hist[-1].x_average)
+        log(f"band {model} N={n}: " + json.dumps(result))
+        results.append(result)
+        for rec in hist:
+            values = [rec.population_prm, rec.energy_prm, rec.energy_mci, rec.purity_prm,
+                      rec.purity_mci, rec.x_average, *rec.population_mci,
+                      *rec.population_prm_each]
+            if not np.all(np.isfinite(values)):
+                raise AssertionError(f"band {model} N={n}: non-finite record at t={rec.time}")
+        if not hist[-1].x_average > -cfg.x0:
+            raise AssertionError(f"band {model} N={n}: stopped at t={hist[-1].time} before "
+                                 f"the packet left (<x> = {hist[-1].x_average})")
+        if drv.stats["element_activations"] < 1:
+            raise AssertionError(f"band {model} N={n}: no element activated: {drv.stats}")
+        if not rmse["rmse_mci"] <= limit:
+            raise AssertionError(f"band {model} N={n}: mci RMSE {rmse['rmse_mci']} above "
+                                 f"{limit}")
+        if device == "cuda":
+            _check_path_launches(f"band {model} N={n}", result["launches"])
+            if not drv._chains.graphs() or not result["graphs"]["replays"] > 0:
+                raise AssertionError(f"band {model} N={n}: the walks or ticks ran no graph")
+        del drv
+    log("band: " + json.dumps([{k: r[k] for k in ("model", "n", "run_s", "rmse_mci",
+                                                   "rmse_prm", "limit_mci", "frames_compared")}
+                               for r in results]))
+    return launches, by_shape, results
+
+
 def _compare_runs(phase: str, chunked, fused) -> dict:
     """Records, points, rho and the random key of a fused run against the
     chunked run (tests/test_fused_trajectory.py's tolerances)."""
@@ -1984,6 +2216,9 @@ def main() -> int:
     cases += new_shapes_phase("sharding / profile / graphs / fused", _keys(cases),
                               shard_by_shape, prof_by_shape, graph_by_shape, fused_by_shape,
                               fcross_by_shape)
+    walk_launches, walk_by_shape, _ = walk_phase()
+    band_launches, band_by_shape, _ = band_phase()
+    cases += new_shapes_phase("walks / band", _keys(cases), walk_by_shape, band_by_shape)
     paths = {"slice": (slice_launches, slice_by_shape),
              "trajectory": (traj_launches, traj_by_shape),
              "crossing": (cross_launches, cross_by_shape),
@@ -1996,7 +2231,9 @@ def main() -> int:
              "profile": (prof_launches, prof_by_shape),
              "graph": (graph_launches, graph_by_shape),
              "fused": (fused_launches, fused_by_shape),
-             "fused_crossing": (fcross_launches, fcross_by_shape)}
+             "fused_crossing": (fcross_launches, fcross_by_shape),
+             "walks": (walk_launches, walk_by_shape),
+             "band": (band_launches, band_by_shape)}
 
     print(json.dumps({"kernels": kernel_summary(cases, paths, per)}))
     print(smi)

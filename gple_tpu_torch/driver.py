@@ -151,6 +151,13 @@ GP_DIST_ELEMS_NOCUT = tuple(
     partial(_gp_dist_elem, elem=k, cutoff=False) for k in range(NUM_ELEMENTS))
 
 
+def _new_point_dist(params, pts, *, model: str, mass: float, dt: float, elem: int,
+                    evolve_dist):
+    """The density of element ``elem`` predicted at points with no value
+    (:func:`EV.predict_new_points` with the evolution distribution)."""
+    return EV.predict_new_points(model, mass, dt, pts, elem, evolve_dist, params)
+
+
 def _init_dist_elem(params, pts, *, elem: int):
     r0, sigma, pops, phases = params
     row, col = ELEMENTS[elem]
@@ -586,8 +593,6 @@ class GPLEDriver:
             self._track_moments = "none"
         else:
             self._track_moments = "off" if cfg.moment_per_tick == "off" else "all"
-        self._new_pt_dists = tuple(
-            partial(self._new_point_dist, elem=k) for k in range(NUM_ELEMENTS))
         #: live booster size (GPLEConfig.coh_fit_extra, capped at the extra
         #: cloud; 0 after a fit-health eject)
         self._coh_k = min(int(cfg.coh_fit_extra), cfg.num_extra_points)
@@ -596,6 +601,12 @@ class GPLEDriver:
         self._coh_div_eff = float(cfg.coh_len_div)
         #: the evolution distribution (GPLEConfig.evolve_cutoff)
         self._evolve_dist = _evolve_dist_for(cfg.evolve_cutoff)
+        #: each element's backward-branching predictor (the labels of seeding
+        #: and re-selection); it holds no reference to the driver, whose
+        #: walk graphs keep it, so a dropped driver frees its graphs at once
+        self._new_pt_dists = tuple(
+            partial(_new_point_dist, model=cfg.model, mass=cfg.mass, dt=cfg.dt, elem=k,
+                    evolve_dist=self._evolve_dist) for k in range(NUM_ELEMENTS))
         self.profile_dir = profile_dir
         self.profiler = None
         self.trace_path: Optional[str] = None
@@ -608,6 +619,9 @@ class GPLEDriver:
         self._graphs = None
         #: (density.active tensor, its host copy) (:meth:`_host_active`)
         self._active_host = (None, None)
+        #: the Metropolis chains' programs, kept for the run: a walk of the
+        #: same distribution at the same shapes replays the graphs of the first
+        self._chains = mc.Chains()
 
     def _init_cache_path(self) -> str:
         """Path of the cached initialization state (GPLEConfig.init_cache),
@@ -638,11 +652,6 @@ class GPLEDriver:
     def _split(self):
         self.rng, sub = self.rng.split(2)
         return sub
-
-    def _new_point_dist(self, params, pts, *, elem: int):
-        cfg = self.cfg
-        return EV.predict_new_points(cfg.model, cfg.mass, cfg.dt, pts, elem,
-                                     self._evolve_dist, params)
 
     def _block_diag(self) -> bool:
         """True when the coherence fit may run block-diagonal (corr = 0): the
@@ -681,7 +690,7 @@ class GPLEDriver:
             if active[k]:
                 p, r, self.mc_params[k] = mc.element_monte_carlo(
                     self._split(), INIT_DIST_ELEMS[k], init_params, pts[k],
-                    self.mc_params[k], tune=True)
+                    self.mc_params[k], tune=True, chains=self._chains)
             else:
                 p, r = pts[k], rho[k]
             new_pts.append(p)
@@ -1154,7 +1163,7 @@ class GPLEDriver:
             walk = self._walk_surrogate(gps_k, k, density, self.extra)
             p, r, self.mc_params[k] = mc.element_monte_carlo(
                 self._split(), self._new_pt_dists[k], gps_k, density.points[k],
-                self.mc_params[k], tune=cfg.mc_retune, walk=walk)
+                self.mc_params[k], tune=cfg.mc_retune, walk=walk, chains=self._chains)
             s = 1.0
             if cfg.relabel_conserve:
                 # the nascent reference: the diagonal point sums as relabeled so far
@@ -1174,7 +1183,8 @@ class GPLEDriver:
                 kk = self._coh_k
                 bp, br, _ = mc.element_monte_carlo(
                     self._split(), self._new_pt_dists[k], relabel_gps,
-                    self.extra.points[k, :kk], self.mc_params[k], tune=False, walk=walk)
+                    self.extra.points[k, :kk], self.mc_params[k], tune=False, walk=walk,
+                    chains=self._chains)
                 e_pts, e_rho = self.extra.points.clone(), self.extra.rho.clone()
                 e_pts[k, :kk], e_rho[k, :kk] = bp, br * s
                 self.extra = Density(points=e_pts, rho=e_rho, active=self.extra.active)
@@ -1197,12 +1207,13 @@ class GPLEDriver:
                 walk = self._walk_surrogate(gps, k, density, extra)
                 pts[k], rho[k], self.mc_params[k] = mc.seed_new_element(
                     self._split(), candidates, self.cfg.num_points,
-                    self._new_pt_dists[k], gps, self.mc_params[k], walk=walk)
+                    self._new_pt_dists[k], gps, self.mc_params[k], walk=walk,
+                    chains=self._chains)
                 if k == OFFDIAG_INDEX and self._coh_k > 0:
                     # seed the booster slots the same way
                     e_pts[k, :self._coh_k], e_rho[k, :self._coh_k], _ = mc.seed_new_element(
                         self._split(), candidates, self._coh_k, self._new_pt_dists[k], gps,
-                        self.mc_params[k], walk=walk)
+                        self.mc_params[k], walk=walk, chains=self._chains)
             elif old_active[k] and not new_active[k]:
                 self._log(f"element {ELEMENTS[k]} vanishes")
                 rho[k] = 0.0

@@ -16,11 +16,14 @@ the crossing-region regression trajectory of ``tests/test_crossing.py``;
 :func:`crossing_dvr_config` is the exact DVR oracle's configuration of the
 same physics, whose populations the crossing trajectory is held against.
 :func:`booster_config` runs the crossing physics with the coherence booster
-and every other default-off flag of the driver.
+and every other default-off flag of the driver.  :func:`parity_config` is a
+whole trajectory of the reference band (``PARITY_ROWS``), held against the
+DVR by :func:`parity_rmse`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gple_tpu_torch.config import GPLEConfig
@@ -106,14 +109,51 @@ def crossing_config() -> GPLEConfig:
                       output_time=10.0, reopt_time=20.0, dt=1.0, num_points=64)
 
 
-def crossing_dvr_config() -> DVRConfig:
-    """The DVR oracle on :func:`crossing_config`'s physics (reflective walls on
-    its interaction region, outputs at its output times), as
-    ``tests/test_crossing.py`` builds it."""
-    cfg = crossing_config()
+def dvr_config_for(cfg: GPLEConfig) -> DVRConfig:
+    """The DVR oracle on a trajectory's physics: reflective walls on its
+    interaction region, ``dx_input = 1``, outputs at its output times
+    (``tests/test_crossing.py:32-37``, ``benchmarks/parity.py:107-111``)."""
     return DVRConfig(model=cfg.model, boundary="reflective", mass=cfg.mass, x0=cfg.x0,
                      p0=cfg.p0, sigma_p=cfg.sigma_p0, xmin=cfg.xmin, xmax=cfg.xmax,
                      dx_input=1.0, output_time=cfg.output_time, dt_input=cfg.dt)
+
+
+def crossing_dvr_config() -> DVRConfig:
+    """The DVR oracle on :func:`crossing_config`'s physics, as
+    ``tests/test_crossing.py`` builds it."""
+    return dvr_config_for(crossing_config())
+
+
+#: the reference band's rows: (model, N, mci limit) -- 1.5x the JAX package's
+#: round-5 RMSE against the DVR (``benchmarks/r05/README.md``; SAC N = 256:
+#: the cold run's 0.075), in order of priority
+PARITY_ROWS = (("SAC", 1024, 0.062), ("ECR", 256, 0.0017), ("SAC", 256, 0.113),
+               ("DAC", 256, 0.079))
+
+
+def parity_config(model: str, n_points: int) -> GPLEConfig:
+    """A whole trajectory of the reference band (``benchmarks/parity.py``'s
+    defaults): mass 2000, x0 = -4, p0 = 20, sigma_p0 = 1, dt 1, an output and
+    a reoptimization every 10 ticks, ``n_points`` points per element, every
+    other setting (the seed too) at its default; it runs until the packet
+    leaves the interaction region, ~810 ticks."""
+    return GPLEConfig(model=model, mass=2000.0, x0=-4.0, p0=20.0, sigma_p0=1.0, dt=1.0,
+                      output_time=10.0, reopt_time=10.0, num_points=n_points)
+
+
+def parity_rmse(hist, dvr_times, dvr_populations) -> dict:
+    """Ground-state population RMSE of a run against the DVR's by both
+    estimators, ``population_mci[0]`` and ``population_prm_each[0]``, with
+    ``benchmarks/parity.py:129-138``'s rules: the DVR interpolated at the
+    run's output times, frames compared up to the DVR's last time."""
+    t = np.array([r.time for r in hist])
+    mci = np.array([r.population_mci[0] for r in hist])
+    prm = np.array([r.population_prm_each[0] for r in hist])
+    exact = np.interp(t, dvr_times, np.asarray(dvr_populations)[:, 0])
+    n = min(len(t), int(np.searchsorted(t, dvr_times[-1], side="right")))
+    return dict(rmse_mci=float(np.sqrt(np.mean((mci[:n] - exact[:n]) ** 2))),
+                rmse_prm=float(np.sqrt(np.mean((prm[:n] - exact[:n]) ** 2))),
+                frames_compared=n)
 
 
 def booster_config(n_points: int = 1024, seed: int = 0) -> GPLEConfig:

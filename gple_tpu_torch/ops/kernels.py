@@ -46,6 +46,10 @@ class KernelParams(NamedTuple):
     lengths: torch.Tensor     # (..., PhaseDim) or (..., PhaseDim, PhaseDim)
     noise: torch.Tensor       # (...) relative noise sigma_n
 
+    @property
+    def num_params(self) -> int:
+        return 2 + self.lengths.shape[-1]
+
     def to_flat(self) -> torch.Tensor:
         """(magnitude, lengths, noise) along the last axis, for vector lengths."""
         ref = self.lengths

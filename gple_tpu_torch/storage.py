@@ -51,6 +51,12 @@ def diag_rows(x):
     return torch.stack([x[k] for k in DIAG_INDICES])
 
 
+def element_index(row: int, col: int) -> int:
+    """Position of element (row, col) in :data:`ELEMENTS`; (0, 1) is the
+    coherence, stored as its conjugate (1, 0)."""
+    return {(0, 0): 0, (1, 0): 1, (0, 1): 1, (1, 1): 2}[(row, col)]
+
+
 class Density(NamedTuple):
     """All sampled phase-space points.
 
@@ -72,6 +78,21 @@ class Density(NamedTuple):
         """Host-side complex numpy view (for analysis and tests)."""
         r = self.rho.detach().cpu().numpy()
         return r[..., 0] + 1.0j * r[..., 1]
+
+    @classmethod
+    def from_complex(cls, points, rho_complex, active, device="cuda") -> "Density":
+        """A density from complex labels (3, N), on ``device``."""
+        return cls(
+            points=torch.as_tensor(points, dtype=torch.float64, device=device),
+            rho=ri.from_complex(torch.as_tensor(rho_complex, dtype=torch.complex128,
+                                                device=device)),
+            active=torch.as_tensor(active, dtype=torch.bool, device=device),
+        )
+
+    def element(self, row: int, col: int):
+        """(points, rho) of element (row, col)."""
+        k = element_index(row, col)
+        return self.points[k], self.rho[k]
 
 
 def make_density(num_points: int, r0, active, dtype=torch.float64, device="cuda") -> Density:

@@ -355,6 +355,26 @@ def test_fit_gp_states_unported_paths_raise(density_pair):
         np.testing.assert_array_equal(getattr(tm, name).numpy(), np.asarray(getattr(jm, name)))
 
 
+def test_small_api_pieces_match():
+    """``element_index``, ``Density.from_complex``, ``Density.element`` and
+    ``KernelParams.num_params`` against the JAX package's, exactly."""
+    for row in range(2):
+        for col in range(2):
+            assert TS.element_index(row, col) == JS.element_index(row, col)
+    rng = np.random.default_rng(21)
+    pts = rng.normal(size=(3, 6, 2))
+    rho = rng.normal(size=(3, 6)) + 1j * rng.normal(size=(3, 6))
+    jd = JS.Density.from_complex(pts, rho, [True, False, True])
+    td = TS.Density.from_complex(pts, rho, [True, False, True], device="cpu")
+    for name in ("points", "rho", "active"):
+        np.testing.assert_array_equal(getattr(td, name).numpy(), np.asarray(getattr(jd, name)))
+    for row, col in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        for t, j in zip(td.element(row, col), jd.element(row, col)):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    jdp, tdp = _params()
+    assert tdp.num_params == jdp.num_params == 4
+
+
 @pytest.fixture(scope="module")
 def gps_pair(density_pair):
     jd, td = density_pair

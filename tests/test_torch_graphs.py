@@ -4,7 +4,9 @@ On the CPU a ``Graph`` runs its function eagerly, and ``copy_`` (the copy
 of a function's results into its static state) reads every source before
 it writes.  On the card (``gpu``): ten replays of the captured tick graph
 against ten eager ``_tick_core`` ticks from the same state, bit for bit,
-with the hand-written kernels' launches counted at every replay.  This file
+with the hand-written kernels' launches counted at every replay; and a
+tuned Metropolis walk as graph replays against the same walk as the
+straight loop, bit for bit.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_graphs.py``.
 """
@@ -71,3 +73,53 @@ def test_graph_replays_match_eager_ticks(cuda_device):
     for ours, theirs in zip(GR.leaves((S.density, S.extra, S.gps)),
                             GR.leaves((density, extra, gps))):
         assert torch.equal(ours, theirs)
+
+
+@pytest.mark.gpu
+def test_graphed_walk_equals_the_eager_walk_on_the_card(cuda_device):
+    """A tuned walk (sweep, recorded chain, chain) on a walk surrogate at
+    M = 256, through graphs and through the straight loop, on one key."""
+    import numpy as np
+
+    from gple_tpu_torch.sampler import mc
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    xs = torch.linspace(-1.0, 1.0, TD._SURR_RES, **f64)
+    grid = torch.exp(-4.0 * (xs[:, None] ** 2 + xs[None, :] ** 2))
+    params = (grid, torch.tensor([-12.0, 22.0], **f64), torch.tensor([-8.0, 38.0], **f64))
+    rng = np.random.default_rng(7)
+    pts = torch.tensor(np.array([-10.0, 30.0]) + rng.normal(size=(256, 2)) * [0.5, 2.0], **f64)
+    out = {}
+    for name, chains in (("eager", None), ("graph", mc.Chains())):
+        GR.reset_counts()
+        with torch.inference_mode():
+            p, r, tuned = mc.element_monte_carlo(RandomKeys(3, cuda_device),
+                                                 TD._surrogate_dist, params, pts,
+                                                 mc.MCParameters(), chains=chains)
+        out[name] = (p, r, (tuned.num_steps, tuned.displacement), dict(GR.COUNTS))
+    assert out["graph"][3]["replays"] > 0 and out["eager"][3]["replays"] == 0
+    assert out["graph"][2] == out["eager"][2]
+    assert torch.equal(out["graph"][0], out["eager"][0])
+    assert torch.equal(out["graph"][1], out["eager"][1])
+
+
+@pytest.mark.gpu
+def test_failed_chain_capture_raises(cuda_device):
+    """A chain whose distribution pulls a value to the host runs eagerly
+    (the capture's warm-up) but cannot be captured: the chain raises, and
+    no eager loop takes over."""
+    from gple_tpu_torch.sampler import mc
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    def pulls(params, pts):
+        (scale,) = params
+        value = torch.ones_like(pts[:, 0]) * float(scale.sum())     # a host pull
+        return torch.stack([value, torch.zeros_like(value)], dim=-1)
+
+    pts = torch.zeros((8, 2), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        with torch.inference_mode():
+            mc.markov_chain(RandomKeys(1, cuda_device), pulls,
+                            (torch.ones(4, dtype=torch.float64, device=cuda_device),), 3,
+                            pts, False, 0.1, mc.Chains())

@@ -13,6 +13,13 @@
 * The committed DVR table ``gple_tpu_torch/data/sac_crossing_dvr.json``
   regenerated by ``gple_tpu``'s ``DVRSolver`` and by the port's (1e-10).  To
   rewrite it: ``PYTHONPATH=. python tests/test_torch_trajectory.py``.
+* The committed table of the reference band's DVR populations
+  ``gple_tpu_torch/data/parity_dvr.json`` (``gple_tpu``'s ``DVRSolver`` on
+  ``entry.parity_config``'s physics for SAC, DAC and ECR): its form, and
+  every model regenerated by ``gple_tpu`` (1e-10; ~10 s for the three on
+  the CPU); on the card all three against the port's DVR.
+  ``PYTHONPATH=. python tests/test_torch_trajectory.py parity`` rewrites
+  it.  And ``entry.parity_rmse``'s alignment rules.
 * Crossing gate (marked ``slow``): the port on the CPU through
   ``tests/test_crossing.py``'s config and assertions.
 """
@@ -32,7 +39,9 @@ from gple_tpu import driver as JD
 from gple_tpu.storage import Density as JDensity
 from gple_tpu_torch import cli, convert
 from gple_tpu_torch import driver as TD
-from gple_tpu_torch.entry import crossing_config, crossing_dvr_config, trajectory_config
+from gple_tpu_torch.entry import (PARITY_ROWS, crossing_config, crossing_dvr_config,
+                                  dvr_config_for, parity_config, parity_rmse,
+                                  trajectory_config)
 from gple_tpu_torch.oracles import DVRSolver
 from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
 from test_torch_mc import JaxKeys
@@ -40,6 +49,7 @@ from test_torch_observables import both_states, random_clouds
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DVR_TABLE = os.path.join(REPO, "gple_tpu_torch", "data", "sac_crossing_dvr.json")
+PARITY_TABLE = os.path.join(REPO, "gple_tpu_torch", "data", "parity_dvr.json")
 MODEL, MASS, DT = "SAC", 2000.0, 1.0
 
 
@@ -237,6 +247,66 @@ def test_dvr_table_matches_the_oracle():
                                atol=1e-10)
 
 
+def parity_dvr_tables(models=None):
+    """``gple_tpu``'s exact DVR populations on ``entry.parity_config``'s
+    physics (``benchmarks/parity.py:107-111``), one table a model."""
+    from gple_tpu.oracles.schrodinger import DVRConfig, DVRSolver
+
+    out = dict(source="gple_tpu.oracles.schrodinger.DVRSolver on entry.parity_config's "
+                      "physics (mass 2000, x0 -4, p0 20, sigma_p 1, reflective, x in [-8, 8], "
+                      "dx 1, dt 1, output every 10); written by tests/test_torch_trajectory.py")
+    for model in models or sorted({row[0] for row in PARITY_ROWS}):
+        cfg = DVRConfig(**vars(dvr_config_for(parity_config(model, 1))))
+        se = DVRSolver(cfg).run(store_wigner=False)
+        out[model] = dict(times=[float(t) for t in se.times],
+                          populations=[[float(p) for p in row] for row in se.populations])
+    return out
+
+
+def test_parity_table_is_whole():
+    """Every model of the band, from t = 0 at the output interval, starting
+    on the lower surface, populations summing to 1."""
+    with open(PARITY_TABLE) as f:
+        table = json.load(f)
+    for model in {row[0] for row in PARITY_ROWS}:
+        times, pops = np.array(table[model]["times"]), np.array(table[model]["populations"])
+        out = parity_config(model, 1).output_time
+        np.testing.assert_array_equal(times, out * np.arange(len(times)))
+        assert len(times) > 30 and pops.shape == (len(times), 2)
+        np.testing.assert_allclose(pops[0], [1.0, 0.0], atol=1e-12)
+        np.testing.assert_allclose(pops.sum(axis=1), 1.0, atol=1e-9)
+
+
+@pytest.mark.parametrize("model", sorted({row[0] for row in PARITY_ROWS}))
+def test_parity_table_matches_the_oracle(model):
+    """The committed band table holds ``gple_tpu``'s DVR values, computed
+    afresh here with the JAX package."""
+    with open(PARITY_TABLE) as f:
+        stored = json.load(f)[model]
+    fresh = parity_dvr_tables([model])[model]
+    np.testing.assert_array_equal(stored["times"], fresh["times"])
+    np.testing.assert_allclose(stored["populations"], fresh["populations"], rtol=0,
+                               atol=1e-10)
+
+
+def test_parity_rmse_follows_the_parity_script():
+    """Frames past the DVR's last time are not compared (side="right"), the
+    DVR is interpolated at the run's times, and the two estimators are read
+    from ``population_mci[0]`` and ``population_prm_each[0]``."""
+    dvr_t = np.array([0.0, 10.0, 20.0])
+    dvr_p = np.array([[1.0, 0.0], [0.8, 0.2], [0.6, 0.4]])
+    hist = [TD.TickRecord(time=t, population_prm=1.0, population_prm_each=np.array([m, 1 - m]),
+                          population_mci=np.array([m + d, 1 - m - d]), energy_prm=0.0,
+                          energy_mci=0.0, purity_prm=1.0, purity_mci=1.0, x_average=0.0,
+                          opt_type="none")
+            for t, m, d in ((0.0, 1.0, 0.0), (5.0, 0.9, 0.03), (20.0, 0.6, -0.04),
+                            (30.0, 0.0, 0.5))]
+    out = parity_rmse(hist, dvr_t, dvr_p)
+    assert out["frames_compared"] == 3
+    assert out["rmse_prm"] == 0.0
+    np.testing.assert_allclose(out["rmse_mci"], np.sqrt((0.03**2 + 0.04**2) / 3), rtol=1e-14)
+
+
 def test_port_dvr_reproduces_the_table():
     """The crossing gate's reference from the port's own DVR oracle."""
     with open(DVR_TABLE) as f:
@@ -274,7 +344,9 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import conftest  # noqa: F401  (JAX on the CPU in float64)
 
-    with open(DVR_TABLE, "w") as f:
-        json.dump(dvr_table(), f, indent=1)
+    path, table = ((PARITY_TABLE, parity_dvr_tables()) if sys.argv[1:] == ["parity"]
+                   else (DVR_TABLE, dvr_table()))
+    with open(path, "w") as f:
+        json.dump(table, f, indent=1)
         f.write("\n")
-    print(f"wrote {DVR_TABLE}")
+    print(f"wrote {path}")
