@@ -33,13 +33,19 @@ Phases (any failure raises and the script exits non-zero):
    and 7 launched, checked and timed as in phase 3;
 9. VJP kernels: ``rbf_gram_vjp`` and ``rbf_predict_vjp`` against their plain
    versions at every shape of the ladder's gradient (1e-10 relative to the
-   largest |entry|), two launches bit for bit, times beside the bound;
+   largest |entry|; ``rbf_gram_vjp`` also on a transposed, a stride-0-batch
+   and an odd-row-stride cotangent), two launches bit for bit, times beside
+   the bound;
 10. ladder: ``Optimizer(opt_mode="ladder")`` on ``entry.example_state(1024)``
    (all three elements active, so the coherence's full pass runs) with
    ``entry.example_extra(5120)`` and the default inner solver, the zoom line
    search: the wall of each stage, its L-BFGS iterations, loss evaluations
    and host pulls per iteration, the accepted stage, the constraint checks;
-   the first stage once more with the fixed fan for its wall; then one loss
+   the first stage once more with the fixed fan for its wall, and once more
+   with the zoom inside ``torch.profiler`` (``ladder_trace``: the device-busy
+   share, device time by family with each hand-written kernel apart, host
+   pulls and loss evaluations per iteration, and one device kernel for each
+   length-cotangent call); how ``rbf_gram_vjp`` read its cotangents; then one loss
    and gradient at N = 256 on the GPU against the same on the CPU, and the
    ladder's first zoom solve (the diagonal lengths) at N = 256 on the GPU
    against the same solve on the CPU (the final iterate, 1e-8 relative);
@@ -328,8 +334,11 @@ def _points_case(lib, rng, dev, case):
 
 
 def _vjp_case(lib, rng, dev, case):
-    """One VJP kernel shape: the wrapper twice and the plain version on the
-    same inputs, then the bare launch and the plain version timed."""
+    """One length-cotangent shape: the wrapper twice and the plain version on
+    the same inputs (``rbf_gram_vjp`` also on a transposed, a stride-0-batch
+    and an odd-row-stride cotangent), then the bare launch timed by both
+    timers (``graph_ms``: replays of a CUDA graph of launches, without the
+    host's cost of a launch) and the plain version timed."""
     from gple_tpu_torch.ops import gram_kernels as GK
     from gple_tpu_torch.ops import kernel_bench as KB
 
@@ -338,41 +347,51 @@ def _vjp_case(lib, rng, dev, case):
     l = KB.lengths_like(rng, case.batch, dev, case.dtype)
     xa = KB.cloud(rng, case.batch, case.na, dev, case.dtype)
     xb = KB.cloud(rng, case.batch, case.nb, dev, case.dtype)
-    alpha = None
+    gw, alpha = KB.vjp_operands(rng, case, dev)
+    bound, by = KB.vjp_bound(case)
+    reads = {}
     if case.c == 0:
-        gw = torch.tensor(rng.normal(size=(case.batch, case.na, case.nb)), dtype=case.dtype,
-                          device=dev)
-        out, again = GK.gram_vjp_cuda(l, xa, xb, gw), GK.gram_vjp_cuda(l, xa, xb, gw)
-        ref = GK.gram_vjp_plain(l, xa, xb, gw)
-        bound, by = KB.gram_vjp_bound(case.batch, case.na, case.nb, 2, case.dtype.itemsize)
+        def vjp(g):
+            return GK.gram_vjp_cuda(l, xa, xb, g)
 
-        def plain():
-            return GK.gram_vjp_plain(l, xa, xb, gw)
+        def plain(g=gw):
+            return GK.gram_vjp_plain(l, xa, xb, g)
+
+        gt = torch.tensor(rng.normal(size=(case.batch, case.nb, case.na)), dtype=case.dtype,
+                          device=dev).transpose(1, 2)
+        g0 = torch.tensor(rng.normal(size=(1, case.na, case.nb)), dtype=case.dtype,
+                          device=dev).expand(case.batch, -1, -1)
+        # an odd row stride: the kernel's strided branch
+        gs = torch.tensor(rng.normal(size=(case.batch, case.na, case.nb + 1)),
+                          dtype=case.dtype, device=dev)[:, :, :case.nb]
+        for name, g in (("transposed", gt), ("stride-0 batch", g0), ("odd row stride", gs)):
+            out_g, again_g = vjp(g), vjp(g)
+            reads[name] = dict(rel_err=_rel(out_g.cpu(), plain(g).cpu()),
+                               bitwise_repeat=bool(torch.equal(out_g, again_g)),
+                               read=GK.gram_vjp_read(g))
+        del gt, g0, gs
     else:
-        alpha = torch.tensor(rng.normal(size=(case.batch, case.nb, case.c)), dtype=case.dtype,
-                             device=dev)
-        gw = torch.tensor(rng.normal(size=(case.batch, case.na, case.c)), dtype=case.dtype,
-                          device=dev)
-        out = GK.predict_vjp_cuda(l, xa, xb, alpha, gw)
-        again = GK.predict_vjp_cuda(l, xa, xb, alpha, gw)
-        ref = GK.predict_vjp_plain(l, xa, xb, alpha, gw)
-        bound, by = KB.predict_vjp_bound(case.batch, case.na, case.nb, case.c, 2,
-                                         case.dtype.itemsize)
+        def vjp(g):
+            return GK.predict_vjp_cuda(l, xa, xb, alpha, g)
 
-        def plain():
-            return GK.predict_vjp_plain(l, xa, xb, alpha, gw)
+        def plain(g=gw):
+            return GK.predict_vjp_plain(l, xa, xb, alpha, g)
+    out, again = vjp(gw), vjp(gw)
+    ref = plain()
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    raw_out = torch.empty_like(out)
-    scratch = torch.empty((case.batch, GK.vjp_partials(case.na, case.nb), 2),
-                          dtype=case.dtype, device=dev)
-    ms = KB.device_ms(KB.raw_vjp(lib, l, xa, xb, gw, raw_out, scratch, alpha))
+    rel = max([err / ref.abs().max().item()] + [r["rel_err"] for r in reads.values()])
+    repeat = bool(torch.equal(out, again)) and all(r["bitwise_repeat"] for r in reads.values())
+    ms = KB.device_ms(KB.raw_vjp(lib, l, xa, xb, gw, torch.empty_like(out), alpha))
+    graph_ms = KB.graph_us(lambda: KB.raw_vjp(lib, l, xa, xb, gw, torch.empty_like(out),
+                                              alpha)) / 1e3
     plain_ms = KB.device_ms(plain, launches=3, min_ms=0, repeats=3)
+    plan = GK.vjp_plan(case.batch, case.na, case.nb, GK._sm_count(dev))
     return dict(kernel=case.kernel, shape=case.shape, key=case.key, what=case.what,
-                per_step=0, per_tick=0, max_abs_err=err,
-                rel_err=err / ref.abs().max().item(), tol=TOL_VJP,
-                bitwise_repeat=bool(torch.equal(out, again)), ms=ms, plain_ms=plain_ms,
-                bound_us=bound * 1e3, bound_by=by, share=bound / ms)
+                per_step=0, per_tick=0, plan=list(plan), max_abs_err=err, rel_err=rel,
+                tol=TOL_VJP, other_reads=reads, bitwise_repeat=repeat, ms=ms,
+                graph_ms=graph_ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
+                share=bound / ms, graph_share=bound / graph_ms)
 
 
 def agreement_phase():
@@ -709,20 +728,23 @@ def ladder_phase():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+    reads = dict(GK.GRAM_VJP_READS)
     stages = [dict(tag=st["tag"], seconds=st["seconds"], error=st["error"],
                    averages=st["averages"].tolist(), check=st["check"].tolist(),
                    zoom=_zoom_summary(st["zoom"]),
                    launches={f"{k[0]} {k[1]}": v for k, v in counts.items()})
               for st, counts in zip(optimizer.stages, stage_launches.records)]
-    fan = _fan_stage(optimizer, density, extra, energies)
+    fan = _first_stage(optimizer, density, extra, energies, "fan")
+    trace = ladder_trace(optimizer, density, extra, energies, stages[0]["seconds"])
     result = dict(n=LADDER_N, lbfgs_steps=LADDER_STEPS, line_search=optimizer.line_search,
                   wall_s=wall, accepted=res.opt_type,
                   error=res.error, stages=stages, targets=[1.0, e0, 1.0],
                   diag_lengths=optimizer.diag_lengths.tolist(),
                   off_params=optimizer.off_params.tolist(),
                   al_lam=optimizer._al_lam.tolist(), launches=launches,
-                  fan_first_stage=fan)
+                  gram_vjp_reads=reads, fan_first_stage=fan)
     log("ladder: " + json.dumps(result))
+    log("ladder traced first stage: " + json.dumps(trace))
     if not np.isfinite(fan["error"]):
         raise AssertionError(f"ladder: the fan's stage {fan}")
     if not np.isfinite(res.error) or res.opt_type not in ("local_previous", "local_initial",
@@ -741,10 +763,11 @@ def _zoom_summary(counts) -> dict:
                 syncs_per_iteration=counts["syncs"] / its)
 
 
-def _fan_stage(optimizer, density, extra, energies) -> dict:
+def _first_stage(optimizer, density, extra, energies, line_search) -> dict:
     """The ladder's first stage (a fresh optimizer's ``local_previous``: the
-    initial parameters, zero multipliers) once more with the fixed fan, for
-    its wall beside the zoom's."""
+    initial parameters, zero multipliers) once more with ``line_search``:
+    the fixed fan for its wall beside the zoom's, or the zoom inside a
+    trace."""
     from gple_tpu_torch.gp import opt as O
 
     with torch.inference_mode(False), torch.enable_grad():
@@ -754,14 +777,91 @@ def _fan_stage(optimizer, density, extra, energies) -> dict:
         f64 = dict(dtype=torch.float64, device=density.points.device)
         start_diag = np.clip(np.tile(optimizer.sigma_r0, (2, 1)), host["dlb"], host["dub"])
         start_off = np.clip(optimizer._initial_off(), host["olb"], host["oub"])
-        torch.cuda.synchronize()
+        _sync(density.points.device.type)
         t0 = time.perf_counter()
         out = O._run_stage(torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64),
                            torch.zeros((2, 3), **f64), data, bool(active[1]),
-                           optimizer.lbfgs_steps, O.AL_OUTER, "fan")
+                           optimizer.lbfgs_steps, O.AL_OUTER, line_search)
         err = float(out[2])
-        return dict(line_search="fan", seconds=time.perf_counter() - t0, error=err,
+        return dict(line_search=line_search, seconds=time.perf_counter() - t0, error=err,
                     averages=out[3].cpu().numpy().tolist())
+
+
+#: device kernels of the hand-written kernels in a trace, by wrapper; the
+#: length cotangents share one template, told apart by its rank argument C
+_LADDER_KERNELS = (("rbf_gram_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *0\b"),
+                   ("rbf_predict_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *[12]\b"),
+                   ("rbf_gram_vjp_points", r"rbf_gram_vjp_points_kernel"),
+                   ("rbf_gram", r"rbf_gram_kernel"),
+                   ("rbf_predict_mean", r"rbf_predict_(partial|reduce)_kernel"))
+#: the first design's two kernels of a length cotangent: no call may launch them
+_TWO_KERNEL_VJP = ("rbf_vjp_partial_kernel", "rbf_vjp_reduce_kernel")
+
+
+def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
+                 device: str = "cuda") -> dict:
+    """Phase 10's trace: the ladder's first zoom stage once more inside
+    ``torch.profiler``, recording the device's activity only (the CUDA
+    runtime's calls and the device's operations: recording every host op
+    too more than doubles the stage's wall).  From the profiler's events
+    (not a chrome export: ~10^6 events): the device-busy share of the traced
+    window and of the untraced stage's wall (``untraced_s``), device time by
+    family with each hand-written kernel apart, the zoom's iterations, loss
+    evaluations and host pulls, and each length cotangent's device kernels
+    against its wrapper's launches: one kernel a call, and no kernel of the
+    two-kernel design."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gple_tpu_torch.gp import opt as O
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    activities = [ProfilerActivity.CUDA if device == "cuda" else ProfilerActivity.CPU]
+    zoom0, launch0 = dict(O.ZOOM_COUNTS), dict(GK.LAUNCHES)
+    _sync(device)
+    with profile(activities=activities) as prof:
+        stage = _first_stage(optimizer, density, extra, energies, "zoom")
+        _sync(device)
+    zoom = _zoom_summary({k: O.ZOOM_COUNTS[k] - zoom0[k] for k in zoom0})
+    calls = {k: GK.LAUNCHES[k] - launch0[k] for k in GK.LAUNCHES}
+    t0 = time.perf_counter()
+    events = prof.profiler.kineto_results.events()
+    first = min(e.start_ns() for e in events)
+    window = max(e.end_ns() for e in events) - first
+    device_events = [e for e in events if e.device_type() != torch.autograd.DeviceType.CPU]
+    families, kernels = {}, {name: 0 for name, _ in _LADDER_KERNELS}
+    for e in device_events:
+        name, ns = e.name(), e.end_ns() - e.start_ns()
+        family = next((k for k, pattern in _LADDER_KERNELS if re.search(pattern, name)), None)
+        if family is not None:
+            kernels[family] += 1
+        else:
+            family = next((f for f, keys in DEVICE_FAMILIES if any(k in name for k in keys)),
+                          "other")
+        calls_ns = families.get(family, (0, 0))
+        families[family] = (calls_ns[0] + 1, calls_ns[1] + ns)
+    busy = _busy((e.start_ns(), e.end_ns()) for e in device_events)
+    two_kernel = sorted({e.name()[:80] for e in device_events
+                         if any(k in e.name() for k in _TWO_KERNEL_VJP)})
+    result = dict(
+        traced_s=stage["seconds"], untraced_s=untraced_s, error=stage["error"], zoom=zoom,
+        window_ms=window / 1e6, device_busy_ms=busy / 1e6,
+        device_busy_share=busy / window if window else 0.0,
+        busy_share_of_untraced=busy / 1e9 / untraced_s, device_ops=len(device_events),
+        host_ops=len(events) - len(device_events),
+        families={f: dict(calls=c, ms=ns / 1e6, share_of_busy=ns / busy if busy else 0.0)
+                  for f, (c, ns) in sorted(families.items(), key=lambda kv: -kv[1][1])},
+        device_kernels=kernels, launches=calls, two_kernel_names=two_kernel,
+        parse_s=time.perf_counter() - t0)
+    if device == "cuda":
+        for name in LENGTH_VJPS:
+            if not calls[name] or kernels[name] != calls[name]:
+                raise AssertionError(f"ladder trace: {calls[name]} {name} calls ran "
+                                     f"{kernels[name]} device kernels")
+        if two_kernel:
+            raise AssertionError(f"ladder trace: two-kernel cotangents {two_kernel}")
+    return result
 
 
 def zoom_agreement_phase():
@@ -910,6 +1010,7 @@ def parity_phase():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+        reads = dict(GK.GRAM_VJP_READS)
 
         rcalls = {}
         resumed = GPLEDriver(cfg, outdir=f"{tmp}/resumed", device="cuda")
@@ -933,7 +1034,8 @@ def parity_phase():
                  opt_types=[rec.opt_type for rec in hist],
                  resumed_opt_types=[rec.opt_type for rec in rhist])
     log(f"reference parity N={TRAJ_N}, {RP_TICKS} ticks: " + json.dumps(walls))
-    log(f"reference parity launches: {json.dumps(launches)}")
+    log(f"reference parity launches: {json.dumps(launches)}; rbf_gram_vjp cotangent "
+        f"reads: {json.dumps(reads)}")
     if len(hist) != RP_TICKS // cfg.output_freq + 1 or len(rhist) != 1:
         raise AssertionError(f"reference parity: {len(hist)} / {len(rhist)} records")
     _check_records("reference parity", hist + rhist, drv.total_energy)

@@ -45,6 +45,7 @@ broadcast over several length sets is never copied.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -56,6 +57,9 @@ LAUNCHES = {"rbf_gram": 0, "rbf_predict_mean": 0, "rbf_gram_vjp": 0, "rbf_predic
 #: and ``rbf_gram_vjp_points`` shapes are (B, Na, Nb, D, dtype),
 #: ``rbf_predict_mean`` and ``rbf_predict_vjp`` shapes (B, M, N, C, D, dtype)
 LAUNCHES_BY_SHAPE: dict = {}
+#: how ``rbf_gram_vjp`` read its cotangents since the last reset (see
+#: :func:`gram_vjp_read`), launches by read
+GRAM_VJP_READS: dict = {}
 
 #: phase-space dimensions the kernels are instantiated for
 MAX_DIM = 4
@@ -67,10 +71,14 @@ GRAM_ROWS_PER_BLOCK = 128
 PREDICT_ROWS_PER_BLOCK = 256
 #: training points a predict block holds in shared memory (``kMaxChunk``)
 PREDICT_MAX_CHUNK = 1024
-#: columns and rows of one block of the VJP kernels (``kThreads``, ``kRowTile``
-#: in csrc/rbf_vjp.cu)
-VJP_COLS_PER_BLOCK = 128
-VJP_ROWS_PER_BLOCK = 32
+#: threads of a block of the length-cotangent kernel and the adjacent columns
+#: each owns (``kThreads``, ``kCols`` in csrc/rbf_vjp.cu)
+VJP_THREADS = 256
+VJP_COLS_PER_THREAD = 2
+VJP_COLS_PER_BLOCK = VJP_THREADS * VJP_COLS_PER_THREAD
+#: most rows a length-cotangent block walks (``kMaxRows``: their scaled points
+#: and g rows sit in shared memory)
+VJP_MAX_ROWS = 256
 #: rows (one warp each) of one block of the points cotangent (``kPointRows``)
 POINTS_VJP_ROWS_PER_BLOCK = 8
 _MAX_GRID_X = 2**31 - 1
@@ -83,12 +91,18 @@ _FILL_BLOCKS = 12
 _BLOCK_SETUP = 8
 #: fewest training points a predict block takes when N is split
 _MIN_CHUNK = 32
+#: length-cotangent blocks the plan aims to put on each SM
+_VJP_BLOCKS_PER_SM = 4
+#: fewest rows a length-cotangent block walks: at validation's B = 1 shapes
+#: (~150-200 rows) short blocks in a sparse grid finish first
+_VJP_MIN_ROWS = 2
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LAUNCHES_BY_SHAPE.clear()
+    GRAM_VJP_READS.clear()
 
 
 def _count_launch(name: str, shape: tuple) -> None:
@@ -295,24 +309,92 @@ def predict_mean_cuda(lengths, x_test, x_train, alpha):
     return out
 
 
-def vjp_partials(na: int, nb: int) -> int:
-    """Blocks (and partial sums per (b, d)) of a VJP launch over (Na, Nb) pairs."""
-    return _cdiv(nb, VJP_COLS_PER_BLOCK) * _cdiv(na, VJP_ROWS_PER_BLOCK)
+class VjpPlan(NamedTuple):
+    """A launch of the length-cotangent kernel: grid (``col_tiles``,
+    ``row_blocks``, ``batch``); block (x, y, b) takes rows [y * rows,
+    min((y + 1) * rows, Na)) against columns [x * VJP_COLS_PER_BLOCK,
+    min((x + 1) * VJP_COLS_PER_BLOCK, Nb)) of batch entry b, and writes one
+    partial sum per dimension to the scratch."""
+
+    rows: int
+    row_blocks: int
+    col_tiles: int
+    batch: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return self.col_tiles, self.row_blocks, self.batch
+
+    def scratch_size(self, d: int) -> int:
+        """Elements of the scratch: one partial per (block, dimension)."""
+        return self.batch * self.row_blocks * self.col_tiles * d
 
 
-def _vjp_range(name: str, batch: int, na: int, nb: int, d: int, c: int = 1):
-    """Raise ValueError where a VJP shape is outside the kernel or its grid."""
-    if (not 1 <= d <= MAX_DIM or not 1 <= c <= MAX_RHS or batch > _MAX_GRID_YZ
-            or max(na, nb) > _MAX_INT or _cdiv(na, VJP_ROWS_PER_BLOCK) > _MAX_GRID_YZ):
-        raise ValueError(f"{name}: D={d}, C={c}, B={batch}, Na={na}, Nb={nb} outside the "
-                         "kernel's range")
+@functools.lru_cache(maxsize=256)
+def vjp_plan(batch: int, na: int, nb: int, num_sms: int) -> VjpPlan:
+    """The length-cotangent kernel's launch over (B, Na, Nb) pairs: rows a
+    block so that the grid holds about ``_VJP_BLOCKS_PER_SM`` blocks an SM
+    (at least ``_VJP_MIN_ROWS`` rows a block, at most ``VJP_MAX_ROWS``),
+    evened out over the row blocks.  Raises ValueError where the grid would
+    leave CUDA's limits."""
+    col_tiles = _cdiv(nb, VJP_COLS_PER_BLOCK)
+    rows = _cdiv(batch * col_tiles * na, num_sms * _VJP_BLOCKS_PER_SM)
+    rows = min(max(rows, _VJP_MIN_ROWS, _cdiv(na, _MAX_GRID_YZ)), VJP_MAX_ROWS)
+    row_blocks = _cdiv(na, rows)
+    if (not 1 <= batch <= _MAX_GRID_YZ or min(na, nb) < 1 or max(na, nb) > _MAX_INT
+            or row_blocks > _MAX_GRID_YZ or col_tiles * row_blocks * batch > _MAX_INT):
+        raise ValueError(f"length cotangent: B={batch}, Na={na}, Nb={nb} outside the "
+                         "kernel's grid")
+    return VjpPlan(_cdiv(na, row_blocks), row_blocks, col_tiles, batch)
+
+
+#: one launch counter (int32, holding 0 between launches) of the
+#: length-cotangent kernel per device: its last block resets it
+_TICKETS: dict = {}
+
+
+def _ticket(dev):
+    ticket = _TICKETS.get(dev)
+    if ticket is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("length cotangent: the first launch on a device cannot be "
+                               "captured (its counter is allocated then); launch once "
+                               "before the capture")
+        ticket = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return ticket
+
+
+def vjp_scratch(plan: VjpPlan, d: int, like):
+    """The partial sums' scratch of a length-cotangent launch."""
+    return torch.empty(plan.scratch_size(d), dtype=like.dtype, device=like.device)
+
+
+def _vjp_dims(name: str, d: int, c: int = 1):
+    if not 1 <= d <= MAX_DIM or not 1 <= c <= MAX_RHS:
+        raise ValueError(f"{name}: D={d}, C={c} outside the kernel's range")
+
+
+def gram_vjp_read(gout):
+    """How ``rbf_gram_vjp`` reads the cotangent (B, Na, Nb): ``(swap,
+    vec)``.  ``swap``: the cotangent is transposed (row stride 1, column
+    stride not), so the wrapper swaps the point sets and reads its
+    transpose, contiguous along the rows.  ``vec``: the (swapped) cotangent
+    is contiguous along its rows with even row and batch strides and an
+    aligned pointer, so each thread copies two columns at once; otherwise
+    the kernel's strided branch reads it through its strides."""
+    swap = gout.stride(2) != 1 and gout.stride(1) == 1
+    sb, si, sj = gout.stride(0), gout.stride(2 if swap else 1), gout.stride(1 if swap else 2)
+    vec = (sj == 1 and si % 2 == 0 and sb % 2 == 0
+           and gout.data_ptr() % (2 * gout.element_size()) == 0)
+    return swap, vec
 
 
 def gram_vjp_cuda(lengths, xa, xb, gout):
     """Launch ``rbf_gram_vjp`` on (B, D), (B, Na, D), (B, Nb, D) CUDA tensors and
-    the Gram's cotangent (B, Na, Nb), read through its strides; returns a new
-    contiguous (B, D) length cotangent.  The blocks' partial sums go to a
-    scratch tensor (B, :func:`vjp_partials`, D) allocated here."""
+    the Gram's cotangent (B, Na, Nb), read in place (:func:`gram_vjp_read`);
+    returns a new contiguous (B, D) length cotangent.  The blocks' partial
+    sums go to a scratch (:func:`vjp_plan`) allocated here; one launch adds
+    them up."""
     _check_cuda("rbf_gram_vjp", lengths, xa, xb, gout)
     batch, na, d = xa.shape
     nb = xb.shape[1]
@@ -321,27 +403,36 @@ def gram_vjp_cuda(lengths, xa, xb, gout):
         raise ValueError(f"rbf_gram_vjp: shapes {tuple(lengths.shape)}, {tuple(xa.shape)}, "
                          f"{tuple(xb.shape)}, {tuple(gout.shape)} do not form (B, D), "
                          "(B, Na, D), (B, Nb, D), (B, Na, Nb)")
-    _vjp_range("rbf_gram_vjp", batch, na, nb, d)
-    fn = _launcher("rbf_gram_vjp", xa.dtype)
+    _vjp_dims("rbf_gram_vjp", d)
     dev = xa.device
-    with torch.cuda.device(dev):
-        if batch * na * nb == 0:
+    if batch * na * nb == 0:
+        with torch.cuda.device(dev):
             return torch.zeros((batch, d), dtype=xa.dtype, device=dev)
+    key = (batch, na, nb, d, str(xa.dtype)[6:])
+    swap, vec = gram_vjp_read(gout)
+    if swap:  # the sum is symmetric in (xa, G) <-> (xb, G^T)
+        xa, xb, gout, na, nb = xb, xa, gout.transpose(1, 2), nb, na
+    fn = _launcher("rbf_gram_vjp", xa.dtype)
+    with torch.cuda.device(dev):
+        plan = vjp_plan(batch, na, nb, _sm_count(dev))
         out = torch.empty((batch, d), dtype=xa.dtype, device=dev)
-        scratch = torch.empty((batch, vjp_partials(na, nb), d), dtype=xa.dtype, device=dev)
+        scratch = vjp_scratch(plan, d, xa)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xa.data_ptr(), xb.data_ptr(), lengths.data_ptr(), gout.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), batch, na, nb, d, *xa.stride(),
-                 *xb.stride(), *lengths.stride(), *gout.stride(), stream)
+                 out.data_ptr(), scratch.data_ptr(), _ticket(dev).data_ptr(), batch, na, nb,
+                 d, plan.rows, int(vec), *xa.stride(), *xb.stride(), *lengths.stride(),
+                 *gout.stride(), stream)
     _raise_on("rbf_gram_vjp", err)
-    _count_launch("rbf_gram_vjp", (batch, na, nb, d, str(xa.dtype)[6:]))
+    _count_launch("rbf_gram_vjp", key)
+    read = ("transposed, " if swap else "") + ("16-byte copies" if vec else "strided")
+    GRAM_VJP_READS[read] = GRAM_VJP_READS.get(read, 0) + 1
     return out
 
 
 def predict_vjp_cuda(lengths, x_test, x_train, alpha, g):
     """Launch ``rbf_predict_vjp`` on (B, D), (B, M, D), (B, N, D), (B, N, C) CUDA
     tensors and the output's cotangent g (B, M, C); returns a new contiguous
-    (B, D) length cotangent (scratch as :func:`gram_vjp_cuda`)."""
+    (B, D) length cotangent (plan and scratch as :func:`gram_vjp_cuda`)."""
     _check_cuda("rbf_predict_vjp", lengths, x_test, x_train, alpha, g)
     batch, m, d = x_test.shape
     n, c = x_train.shape[1], alpha.shape[-1]
@@ -351,19 +442,21 @@ def predict_vjp_cuda(lengths, x_test, x_train, alpha, g):
             f"rbf_predict_vjp: shapes {tuple(lengths.shape)}, {tuple(x_test.shape)}, "
             f"{tuple(x_train.shape)}, {tuple(alpha.shape)}, {tuple(g.shape)} do not form "
             "(B, D), (B, M, D), (B, N, D), (B, N, C), (B, M, C)")
-    _vjp_range("rbf_predict_vjp", batch, m, n, d, c)
-    fn = _launcher("rbf_predict_vjp", x_test.dtype)
+    _vjp_dims("rbf_predict_vjp", d, c)
     dev = x_test.device
-    with torch.cuda.device(dev):
-        if batch * m * n == 0:
+    if batch * m * n == 0:
+        with torch.cuda.device(dev):
             return torch.zeros((batch, d), dtype=x_test.dtype, device=dev)
+    fn = _launcher("rbf_predict_vjp", x_test.dtype)
+    with torch.cuda.device(dev):
+        plan = vjp_plan(batch, m, n, _sm_count(dev))
         out = torch.empty((batch, d), dtype=x_test.dtype, device=dev)
-        scratch = torch.empty((batch, vjp_partials(m, n), d), dtype=x_test.dtype, device=dev)
+        scratch = vjp_scratch(plan, d, x_test)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_test.data_ptr(), x_train.data_ptr(), lengths.data_ptr(), g.data_ptr(),
-                 alpha.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, m, n, d, c,
-                 *x_test.stride(), *x_train.stride(), *lengths.stride(), *g.stride(),
-                 *alpha.stride(), stream)
+                 alpha.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 _ticket(dev).data_ptr(), batch, m, n, d, c, plan.rows, *x_test.stride(),
+                 *x_train.stride(), *lengths.stride(), *g.stride(), *alpha.stride(), stream)
     _raise_on("rbf_predict_vjp", err)
     _count_launch("rbf_predict_vjp", (batch, m, n, c, d, str(x_test.dtype)[6:]))
     return out

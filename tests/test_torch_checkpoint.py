@@ -30,7 +30,6 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 from gple_tpu import observables as JOBS
 from gple_tpu.config import GPLEConfig as JGPLEConfig
@@ -43,20 +42,11 @@ from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.driver import GPLEDriver
 from gple_tpu_torch.io import checkpoint as ckpt
 from test_torch_driver import jax_window, snapshot
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
 from test_torch_trajectory import INPUT
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The ladder is thousands of small tensor ops; with one process per
-    core (the suite's workers) intra-op threads only contend for the cores.
-    One thread per process for this module; the previous count after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 TOL_POINTS, TOL_RHO, TOL_ALPHA, TOL_RECORD = 1e-12, 1e-8, 1e-8, 1e-8
 RUN = dict(model="DAC", mass=2000.0, x0=-10.0, p0=30.0, sigma_p0=1.5, output_time=1.0,

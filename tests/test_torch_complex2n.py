@@ -29,20 +29,12 @@ from gple_tpu_torch import convert
 from gple_tpu_torch import storage as TS
 from gple_tpu_torch.ops import complex_kernels as CK
 from test_torch_gp import complex_params
-from test_torch_kernels import _warm_torch_exp, cloud, t64  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, cloud, t64  # noqa: F401 (fixtures)
+from test_torch_kernels import one_torch_thread  # noqa: F401 (fixture)
 
 N_TRAIN, N_TEST = 48, 70
 CORRS = [0.5, -0.7, 1.0]
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The ladder is thousands of small tensor ops; with one process per
-    core (the suite's workers) intra-op threads only contend for the cores.
-    One thread per process for this module; the previous count after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 TOL_FIT, TOL_OBS, TOL_REFIT, TOL_BATCH = 1e-10, 1e-9, 1e-8, 1e-9
 

@@ -31,7 +31,7 @@ from gple_tpu_torch import driver as TD
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.driver import GPLEDriver
 from gple_tpu_torch.sampler.mc import POSSIBLE_DISPLACEMENTS
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
 
 TOL_POINTS, TOL_RHO, TOL_ALPHA, TOL_RECORD = 1e-12, 1e-8, 1e-8, 1e-8

@@ -14,8 +14,7 @@ import pytest
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.driver import GPLEDriver
 from gple_tpu_torch.oracles.schrodinger import DVRConfig, DVRSolver
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
-from test_torch_oracles import _one_torch_thread  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
 ECR_RUN = dict(model="ECR", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0, output_time=10.0,
                reopt_time=10.0, dt=1.0, num_points=64)

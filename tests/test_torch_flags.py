@@ -44,9 +44,8 @@ from gple_tpu_torch import convert
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.io import checkpoint as ckpt
 from gple_tpu_torch.ops import kernels as RK
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
-from test_torch_oracles import _one_torch_thread  # noqa: F401 (fixture)
 
 TOL_POINTS, TOL_RHO = 1e-12, 1e-8
 CROSSING = dict(model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0, output_time=2.0,

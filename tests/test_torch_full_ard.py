@@ -36,9 +36,8 @@ from gple_tpu_torch.models import tully
 from gple_tpu_torch.ops import gram_kernels as GK
 from gple_tpu_torch.ops import kernels as K
 from gple_tpu_torch.utils.constants import purity_factor
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
-from test_torch_oracles import _one_torch_thread  # noqa: F401 (fixture)
 
 TOL_FIT = 1e-6
 

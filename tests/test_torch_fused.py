@@ -43,7 +43,7 @@ from gple_tpu_torch import driver as TD
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.gp.opt import Optimizer
 from gple_tpu_torch.ops import graphs as GR
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
 from test_torch_observables import both_states
 
@@ -55,16 +55,6 @@ RECORD_FIELDS = ("population_prm", "population_prm_each", "population_mci", "ene
                  "energy_mci", "purity_prm", "purity_mci", "x_average")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """A trajectory on the CPU is thousands of small tensor ops; with one
-    process per core (the suite's workers) intra-op threads only contend for
-    the cores.  One thread per process for this module; the previous count
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def host(a):

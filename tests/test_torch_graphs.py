@@ -17,6 +17,7 @@ import torch
 from gple_tpu_torch import driver as TD
 from gple_tpu_torch.ops import graphs as GR
 from test_torch_kernels import _warm_torch_exp, cuda_device  # noqa: F401 (fixtures)
+from test_torch_kernels import one_torch_thread  # noqa: F401 (fixture)
 
 
 def test_copy_reads_sources_before_writing():

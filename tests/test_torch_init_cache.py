@@ -20,7 +20,7 @@ import torch
 from gple_tpu_torch import driver as TD
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.driver import GPLEDriver
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
 TICKS = 12
 CFG = GPLEConfig(model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0, output_time=2.0,

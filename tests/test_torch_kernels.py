@@ -36,6 +36,18 @@ def _warm_torch_exp():
         torch.exp(-torch.linspace(0.0, 40.0, 1 << 20, dtype=dtype))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The driver, the ladder and the oracles are thousands of small tensor
+    ops; with one process per core (the suite's workers), intra-op threads
+    only contend for the cores.  One intra-op thread for this module and for
+    every module that imports this fixture; the previous count after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t64(a):
     return torch.tensor(np.asarray(a), dtype=torch.float64)
 

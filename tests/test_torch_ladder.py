@@ -46,18 +46,8 @@ from gple_tpu_torch.gp import opt
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.storage import fit_gp_states
 from test_opt import MASS, MODEL, R0, SIGMA, sampled_density
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The ladder is thousands of small tensor ops; with one process per
-    core (the suite's workers) intra-op threads only contend for the cores.
-    One thread per process for this module; the previous count after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 TOL_LOSS, TOL_FAN, TOL_STAGE, TOL_LAM = 1e-7, 1e-7, 1e-6, 1e-5
 TOL_ERROR = TOL_LAM

@@ -20,8 +20,8 @@ from gple_tpu.oracles import liouville as JL
 from gple_tpu_torch import convert
 from gple_tpu_torch.oracles import DVRConfig, DVRSolver, LiouvilleConfig, LiouvilleSolver
 from gple_tpu_torch.oracles.liouville import _hermitize
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
-from test_torch_oracles import CPU, SMALL, _one_torch_thread, _rel  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
+from test_torch_oracles import CPU, SMALL, _rel
 
 TOL_RHO = 1e-9
 

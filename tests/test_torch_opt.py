@@ -20,7 +20,7 @@ from gple_tpu_torch import convert
 from gple_tpu_torch.gp import opt
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_observables import random_clouds
 
 TOL = 1e-10
@@ -111,15 +111,6 @@ def test_wstd_and_length_bounds_match(clouds):
     for ours, theirs in zip(opt.Optimizer.length_bounds(pts[0]),
                             jopt.Optimizer.length_bounds(pts[0])):
         np.testing.assert_array_equal(ours, theirs)
-
-
-@pytest.fixture
-def one_torch_thread():
-    """The ladder is thousands of small tensor ops: one intra-op thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_ladder_is_not_ported(clouds, one_torch_thread):

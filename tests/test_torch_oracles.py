@@ -36,17 +36,8 @@ from gple_tpu_torch.oracles.schrodinger import (
     wigner_transform,
 )
 from gple_tpu_torch.utils.constants import HBAR
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small dense products and long loops of matrix-vector steps: one
-    intra-op thread per process (the suite runs one worker per core)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 CPU = "cpu"
 TOL_STATE = 1e-10

@@ -20,7 +20,7 @@ from gple_tpu_torch import plotting as P
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.driver import GPLEDriver
 from gple_tpu_torch.oracles.schrodinger import DVRConfig, DVRSolver
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DVR = dict(model="SAC", boundary="reflective", mass=2000.0, x0=-3.0, p0=25.0, sigma_p=1.0,

@@ -20,7 +20,7 @@ import __graft_entry__ as graft
 from gple_tpu.parallel import sharding as JSH
 from gple_tpu_torch.entry import dryrun_multichip, example_state
 from gple_tpu_torch.parallel import sharding as SH
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
 MODEL, MASS, DT = "SAC", 2000.0, 1.0
 N = 64

@@ -25,7 +25,7 @@ from gple_tpu_torch import storage as TS
 from gple_tpu_torch.entry import example_extra, example_state
 from gple_tpu_torch.ops import gram_kernels as GK
 from gple_tpu_torch.parallel.sharding import make_step_fn
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 
 MODEL, MASS, DT = "SAC", 2000.0, 1.0
 N = 64

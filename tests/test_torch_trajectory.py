@@ -43,7 +43,7 @@ from gple_tpu_torch.entry import (PARITY_ROWS, crossing_config, crossing_dvr_con
                                   dvr_config_for, parity_config, parity_rmse,
                                   trajectory_config)
 from gple_tpu_torch.oracles import DVRSolver
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
 from test_torch_observables import both_states, random_clouds
 

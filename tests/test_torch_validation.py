@@ -31,9 +31,8 @@ from gple_tpu_torch.io.input_gen import cutoff_125, generate_input
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.oracles import DVRConfig, DVRSolver
 from gple_tpu_torch.sampler.keys import RandomKeys
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
-from test_torch_oracles import _one_torch_thread  # noqa: F401 (fixture)
 
 CPU = "cpu"
 TOL_NLL = 1e-9

@@ -24,17 +24,8 @@ from gple_tpu.ops import kernels as JRK
 from gple_tpu_torch.ops import gram_kernels as GK
 from gple_tpu_torch.ops import kernels as RK
 from test_torch_kernels import _warm_torch_exp, cloud, cuda_device  # noqa: F401 (fixtures)
+from test_torch_kernels import one_torch_thread  # noqa: F401 (fixture)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The ladder is thousands of small tensor ops; with one process per
-    core (the suite's workers) intra-op threads only contend for the cores.
-    One thread per process for this module; the previous count after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 TOL_VJP = 1e-12
 
@@ -253,6 +244,21 @@ def test_vjp_bounds_at_ladder_shapes():
     assert all(c.key[0] == c.kernel for c in KB.VJP_CASES)
 
 
+def test_kernel_bench_variants_edit_the_source():
+    """Each diagnostic variant of ``kernel_bench --variants`` finds the lines it
+    edits in this checkout's rbf_vjp.cu (an edit of the kernel that moves
+    them fails here, not on the card)."""
+    from gple_tpu_torch.ops import _build
+    from gple_tpu_torch.ops import kernel_bench as KB
+
+    source = (_build.CSRC / "rbf_vjp.cu").read_text()
+    assert set(KB.VARIANTS) == {"no exp", "no cotangent reads", "no ticket"}
+    for name, edits in KB.VARIANTS.items():
+        text = KB.variant_source(name)
+        assert all(find not in text and replace in text for find, replace in edits)
+        assert len(text) < len(source)
+
+
 def test_launched_vjp_shapes_become_cases():
     from gple_tpu_torch.ops import kernel_bench as KB
 
@@ -270,13 +276,15 @@ def test_launched_vjp_shapes_become_cases():
 def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
     """The VJP launchers on CPU tensors with a stand-in for the C launch: the
     argument order of the C prototypes, strided and broadcast operands read
-    in place, a scratch of ``vjp_partials`` partials, counted launches."""
+    in place (a transposed Gram cotangent as its transpose, the point sets
+    swapped), a scratch of the plan's partials and the device's counter,
+    counted launches under the caller's shape."""
     import contextlib
     import types
 
     from gple_tpu_torch.ops import _build
 
-    calls = []
+    calls, scratches = [], []
 
     def launcher(prefix, dtype):
         def fn(*args):
@@ -285,8 +293,15 @@ def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
             return 0
         return fn
 
+    def vjp_scratch(plan, d, like):
+        scratches.append((plan, d, GK.vjp_scratch.__wrapped__(plan, d, like)))
+        return scratches[-1][2]
+
+    vjp_scratch.__wrapped__ = GK.vjp_scratch
     monkeypatch.setattr(GK, "_check_cuda", lambda name, *t: None)
     monkeypatch.setattr(GK, "_launcher", launcher)
+    monkeypatch.setattr(GK, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(GK, "vjp_scratch", vjp_scratch)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
@@ -297,16 +312,25 @@ def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
     g = t64(rng.normal(size=(3, 40, 70))).transpose(1, 2)
     out = GK.gram_vjp_cuda(l, xa, xb, g)
     (prefix, args), = calls
+    plan, d, scratch = scratches[0]
     assert prefix == "rbf_gram_vjp" and out.shape == (3, 2)
-    assert args[6:10] == (3, 70, 40, 2)
-    assert args[10:21] == (*xa.stride(), 0, 2, 1, *l.stride(), *g.stride())
+    assert args[:4] == (xb.data_ptr(), xa.data_ptr(), l.data_ptr(), g.data_ptr())
+    assert args[5] == scratch.data_ptr() and args[6] == GK._TICKETS[l.device].data_ptr()
+    assert plan == GK.vjp_plan(3, 40, 70, 132) and d == 2
+    assert scratch.numel() == 3 * plan.row_blocks * plan.col_tiles * 2
+    assert args[7:13] == (3, 40, 70, 2, plan.rows, 1)
+    assert args[13:24] == (0, 2, 1, *xa.stride(), *l.stride(), 2800, 70, 1)
+    assert GK.LAUNCHES_BY_SHAPE == {("rbf_gram_vjp", (3, 70, 40, 2, "float64")): 1}
+    assert GK.GRAM_VJP_READS == {"transposed, 16-byte copies": 1}
     alpha = t64(rng.normal(size=(3, 2, 40))).transpose(1, 2)
     gp = t64(rng.normal(size=(3, 70, 2)))
     GK.predict_vjp_cuda(l, xa, xb, alpha, gp)
     prefix, args = calls[1]
-    assert prefix == "rbf_predict_vjp" and args[7:12] == (3, 70, 40, 2, 2)
-    assert args[12:26] == (*xa.stride(), 0, 2, 1, *l.stride(), *gp.stride(), *alpha.stride())
-    assert GK.vjp_partials(70, 40) == 1 * 3
+    plan, d, scratch = scratches[1]
+    assert prefix == "rbf_predict_vjp" and plan == GK.vjp_plan(3, 70, 40, 132)
+    assert args[6] == scratch.data_ptr() and args[7] == GK._TICKETS[l.device].data_ptr()
+    assert args[8:14] == (3, 70, 40, 2, 2, plan.rows)
+    assert args[14:28] == (*xa.stride(), 0, 2, 1, *l.stride(), *gp.stride(), *alpha.stride())
     out = GK.gram_vjp_points_cuda(l, xa, xb, g)
     prefix, args = calls[2]
     assert prefix == "rbf_gram_vjp_points" and out.shape == (3, 70, 2)
@@ -316,3 +340,76 @@ def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
     assert GK.LAUNCHES["rbf_gram_vjp_points"] == 1
     assert GK.LAUNCHES_BY_SHAPE[("rbf_gram_vjp_points", (3, 70, 40, 2, "float64"))] == 1
     GK.reset_launches()
+    GK._TICKETS.pop(l.device)
+
+
+# -- the length-cotangent kernel's launch plan (gram_kernels.vjp_plan) ------------------
+
+#: (B, Na, Nb): the ladder's shapes at N = 1024, validation's NLL shapes and
+#: ragged ones (Na, Nb not multiples of a block's rows or columns)
+PLAN_SHAPES = [(2, 1024, 1024), (3, 1024, 1024), (5, 1024, 1024), (2, 5120, 1024),
+               (3, 5120, 1024), (1, 150, 150), (1, 160, 160), (1, 200, 200), (7, 200, 200),
+               (1, 1, 1), (2, 33, 1), (3, 257, 130), (1, 77, 2047), (4, 1000, 999),
+               (5, 300, 7), (2, 1024, 5120), (1, 100_003, 3)]
+
+
+@pytest.mark.parametrize("batch,na,nb", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 16])
+def test_vjp_plan_covers_every_pair_once(batch, na, nb, sms):
+    """The grid's blocks, as the kernel maps them (block (x, y, b): rows
+    [y * rows, min((y + 1) * rows, Na)), columns [x * 256, min((x + 1) * 256,
+    Nb))), take every (i, j) pair of every batch entry exactly once, and no
+    block is empty."""
+    plan = GK.vjp_plan(batch, na, nb, sms)
+    cols = GK.VJP_COLS_PER_BLOCK
+    assert plan.grid == (plan.col_tiles, plan.row_blocks, batch)
+    rows_hit = np.zeros(na, dtype=int)
+    for y in range(plan.row_blocks):
+        lo, hi = y * plan.rows, min((y + 1) * plan.rows, na)
+        assert hi > lo
+        rows_hit[lo:hi] += 1
+    cols_hit = np.zeros(nb, dtype=int)
+    for x in range(plan.col_tiles):
+        lo, hi = x * cols, min((x + 1) * cols, nb)
+        assert hi > lo
+        cols_hit[lo:hi] += 1
+    assert np.all(rows_hit == 1) and np.all(cols_hit == 1)
+
+
+@pytest.mark.parametrize("batch,na,nb", PLAN_SHAPES)
+def test_vjp_plan_grid_and_scratch(batch, na, nb):
+    """The grid stays inside CUDA's limits (x < 2^31, y and z <= 65535, rows
+    within the kernel's shared-memory tile), the plan fills a 132-SM card at
+    the ladder's shapes, and the scratch holds the largest partial index the
+    kernel writes, (b * parts + y * grid.x + x) * D + d, for D = 1-4."""
+    plan = GK.vjp_plan(batch, na, nb, 132)
+    gx, gy, gz = plan.grid
+    assert 1 <= plan.rows <= GK.VJP_MAX_ROWS and 1 <= gx < 2**31
+    assert 1 <= gy <= 65535 and 1 <= gz <= 65535 and gx * gy * gz < 2**31
+    if na * nb * batch >= 1024 * 1024:
+        assert gx * gy * gz >= 132
+    for d in range(1, GK.MAX_DIM + 1):
+        last = ((gz - 1) * gx * gy + (gy - 1) * gx + (gx - 1)) * d + (d - 1)
+        assert plan.scratch_size(d) == last + 1
+
+
+def test_vjp_plan_refuses_grids_outside_cudas_limits():
+    plan = GK.vjp_plan(1, GK.VJP_MAX_ROWS * 65535, 2, 132)
+    assert plan.row_blocks == 65535
+    with pytest.raises(ValueError, match="grid"):
+        GK.vjp_plan(1, GK.VJP_MAX_ROWS * 65535 + 1, 2, 132)
+    with pytest.raises(ValueError, match="grid"):
+        GK.vjp_plan(65536, 8, 8, 132)
+
+
+def test_gram_vjp_read_picks_the_kernels_branch():
+    """16-byte copies where the cotangent (or its transpose) is contiguous
+    along its rows with even strides and an aligned pointer; the strided
+    branch otherwise."""
+    g = torch.zeros(3, 40, 70, dtype=torch.float64)
+    assert GK.gram_vjp_read(g) == (False, True)
+    assert GK.gram_vjp_read(g.transpose(1, 2)) == (True, True)
+    assert GK.gram_vjp_read(g[:1].expand(3, 40, 70)) == (False, True)
+    assert GK.gram_vjp_read(torch.zeros(3, 40, 71, dtype=torch.float64)) == (False, False)
+    assert GK.gram_vjp_read(g[:, :, 1:69]) == (False, False)   # 8 bytes off
+    assert GK.gram_vjp_read(g[:, :, ::2]) == (False, False)    # column stride 2

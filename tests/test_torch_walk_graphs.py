@@ -35,7 +35,7 @@ from gple_tpu_torch.entry import crossing_config, example_state
 from gple_tpu_torch.ops import graphs as GR
 from gple_tpu_torch.sampler import mc
 from gple_tpu_torch.sampler.keys import RandomKeys
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import R0, SIGMA, JaxKeys, jax_init_params, t64, torch_init_params
 
 M = 8
@@ -43,15 +43,6 @@ TOL_POINTS = 1e-12          # test_torch_mc.py's: walker positions against JAX's
 FORBIDDEN = ("aten.lift_fresh", "aten._local_scalar_dense")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Chains are thousands of small tensor ops: one intra-op thread for
-    this module (the suite runs one worker per core), the previous count
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cloud(seed, m=M):

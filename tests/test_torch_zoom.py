@@ -39,10 +39,9 @@ from gple_tpu_torch.gp import opt as O
 from gple_tpu_torch.oracles import schrodinger as S
 from test_opt import MASS, MODEL, SIGMA, sampled_density
 from test_torch_full_ard import _tilted_snapshot
-from test_torch_kernels import _warm_torch_exp  # noqa: F401 (fixture)
+from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_ladder import _with_coherence
 from test_torch_mc import JaxKeys
-from test_torch_oracles import _one_torch_thread  # noqa: F401 (fixture)
 
 TOL_ITERATE = 1e-10
 TOL_FIT = 1e-6
