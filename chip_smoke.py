@@ -75,12 +75,22 @@ Phases (any failure raises and the script exits non-zero):
    ``test_validation`` run, and the tilted snapshot of
    ``tests/test_full_ard.py``; held to those tests' bounds (the axis-aligned
    fit of the tilted production frame is recorded, and must lose to the
-   full-ARD fit by the factor the tilted snapshot must); then one NLL loss
-   and its gradient (vector and full-ARD, N = 200) on the card against the
-   CPU (1e-9 relative);
+   full-ARD fit by the factor the tilted snapshot must); the strides of the
+   cotangents ``rbf_gram_vjp_points`` read and the branch each side took;
+   the t = 400 full-ARD fit once more inside ``torch.profiler``
+   (``validation_trace``: the device-busy share, device time by family with
+   each hand-written kernel apart, the zoom's iterations, evaluations and
+   host pulls, and one ``rbf_gram_vjp_points`` device kernel for each Gram
+   backward, both point sets: 2 launches a gradient evaluation, where the
+   one-sided kernel took 4); then one NLL loss and its gradient (vector and
+   full-ARD, N = 200) on the card against the CPU (1e-9 relative);
 15. kernels at the validation's shapes: every (kernel, shape) that phases 13
    and 14 launched and no earlier phase checked, checked and timed as in
-   phase 3 (``rbf_gram_vjp_points`` with its cotangent read both ways);
+   phase 3, and ``kernel_bench.POINTS_VJP_CASES`` (the 1024^2 guard): the
+   ``rbf_gram_vjp_points`` pair call on a contiguous, a transposed, a
+   stride-0-batch and an odd-row-stride cotangent, both sides and each
+   alone, timed by both timers beside the latency floor (an empty kernel,
+   ``kernel_bench.floor_us``, printed once);
 16. booster: ``GPLEDriver(entry.booster_config(1024))`` for 80 ticks -- the
    crossing physics with 1024 extra points in the coherence fit at divisor
    6, per-tick tracking of the coherence, the coherence-only cutoff, both
@@ -302,35 +312,75 @@ def kernel_phase(gram_cases=None, predict_cases=None, vjp_cases=()):
     return cases
 
 
+#: the latency floor (``kernel_bench.floor_us``), measured once a run
+_FLOOR: dict = {}
+
+
+def latency_floor() -> dict:
+    """An empty kernel's us a launch by both timers, measured at the first call."""
+    from gple_tpu_torch.ops import kernel_bench as KB
+
+    if not _FLOOR:
+        _FLOOR.update(KB.floor_us())
+        log("latency floor (an empty kernel, 1 x 32): " + json.dumps(_FLOOR))
+    return _FLOOR
+
+
 def _points_case(lib, rng, dev, case):
-    """One ``rbf_gram_vjp_points`` shape: the wrapper twice on a contiguous
-    cotangent and once on a transposed view of one (the second point set's
-    read), each against the plain version; the bare launch and the plain
-    version timed."""
+    """One ``rbf_gram_vjp_points`` shape: the pair wrapper on a contiguous, a
+    transposed, a stride-0-batch and an odd-row-stride cotangent, each for
+    both point sets and for each alone (the other output None), twice (bit
+    for bit), against the pair's plain counterpart
+    (``gram_vjp_points_pair_plain``: two plain calls, the second on the
+    transposed cotangent); the bare pair call timed by both timers beside
+    the latency floor and the bound, the plain pair timed."""
     from gple_tpu_torch.ops import gram_kernels as GK
     from gple_tpu_torch.ops import kernel_bench as KB
 
-    l = KB.lengths_like(rng, case.batch, dev, case.dtype)
-    xa = KB.cloud(rng, case.batch, case.na, dev, case.dtype)
-    xb = KB.cloud(rng, case.batch, case.nb, dev, case.dtype)
-    gw = torch.tensor(rng.normal(size=(case.batch, case.na, case.nb)), dtype=case.dtype,
-                      device=dev)
+    l, xa, xb, gw = KB.points_operands(rng, case, dev)
     gt = torch.tensor(rng.normal(size=(case.batch, case.nb, case.na)), dtype=case.dtype,
                       device=dev).transpose(1, 2)
-    out, again = GK.gram_vjp_points_cuda(l, xa, xb, gw), GK.gram_vjp_points_cuda(l, xa, xb, gw)
-    out_t = GK.gram_vjp_points_cuda(l, xa, xb, gt)
-    ref, ref_t = GK.gram_vjp_points_plain(l, xa, xb, gw), GK.gram_vjp_points_plain(l, xa, xb, gt)
-    torch.cuda.synchronize()
-    err = max((out - ref).abs().max().item(), (out_t - ref_t).abs().max().item())
-    rel = max(_rel(out.cpu(), ref.cpu()), _rel(out_t.cpu(), ref_t.cpu()))
-    ms = KB.device_ms(KB.raw_points_vjp(lib, l, xa, xb, gw, torch.empty_like(out)))
-    plain_ms = KB.device_ms(lambda: GK.gram_vjp_points_plain(l, xa, xb, gw), launches=3,
+    g0 = torch.tensor(rng.normal(size=(1, case.na, case.nb)), dtype=case.dtype,
+                      device=dev).expand(case.batch, -1, -1)
+    gs = torch.tensor(rng.normal(size=(case.batch, case.na, case.nb + 1)), dtype=case.dtype,
+                      device=dev)[:, :, :case.nb]
+    reads, err = {}, 0.0
+    for name, g in (("contiguous", gw), ("transposed", gt), ("stride-0 batch", g0),
+                    ("odd row stride", gs)):
+        ref = GK.gram_vjp_points_pair_plain(l, xa, xb, g)
+        rel, repeat = 0.0, True
+        for sides in ((True, True), (True, False), (False, True)):
+            out = GK.gram_vjp_points_cuda(l, xa, xb, g, *sides)
+            again = GK.gram_vjp_points_cuda(l, xa, xb, g, *sides)
+            torch.cuda.synchronize()
+            for o, a, r, want in zip(out, again, ref, sides):
+                if (o is None) == want:
+                    raise AssertionError(f"rbf_gram_vjp_points {case.shape} {name}: sides "
+                                         f"{sides} returned {[x is None for x in out]}")
+                if want:
+                    err = max(err, (o - r).abs().max().item())
+                    rel = max(rel, _rel(o.cpu(), r.cpu()))
+                    repeat = repeat and bool(torch.equal(o, a))
+        reads[name] = dict(rel_err=rel, bitwise_repeat=repeat, strides=list(g.stride()),
+                           read_a=GK.points_vjp_read(g.stride(), "a"),
+                           read_b=GK.points_vjp_read(g.stride(), "b"))
+    del gt, g0, gs
+    outs = [torch.empty_like(x) for x in (xa, xb)]
+    ms = KB.device_ms(KB.raw_points_vjp(lib, l, xa, xb, gw, *outs))
+    graph_ms = KB.graph_us(lambda: KB.raw_points_vjp(lib, l, xa, xb, gw, *outs)) / 1e3
+    plain_ms = KB.device_ms(lambda: GK.gram_vjp_points_pair_plain(l, xa, xb, gw), launches=3,
                             min_ms=0, repeats=3)
     bound, by = KB.gram_vjp_points_bound(case.batch, case.na, case.nb, 2, case.dtype.itemsize)
+    floor = latency_floor()
+    plan = GK.points_plan(case.batch, case.na, case.nb, True, True, GK._sm_count(dev))
     return dict(kernel=case.kernel, shape=case.shape, key=case.key, what=case.what,
-                per_step=0, per_tick=0, max_abs_err=err, rel_err=rel, tol=TOL_VJP,
-                bitwise_repeat=bool(torch.equal(out, again)), ms=ms, plain_ms=plain_ms,
-                bound_us=bound * 1e3, bound_by=by, share=bound / ms)
+                per_step=0, per_tick=0, plan=list(plan), max_abs_err=err,
+                rel_err=max(r["rel_err"] for r in reads.values()), tol=TOL_VJP, reads=reads,
+                bitwise_repeat=all(r["bitwise_repeat"] for r in reads.values()), ms=ms,
+                graph_ms=graph_ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
+                share=bound / ms, graph_share=bound / graph_ms,
+                floor_graph_us=floor["graph_us"], floor_bare_us=floor["bare_us"],
+                graph_over_floor=graph_ms * 1e3 / floor["graph_us"])
 
 
 def _vjp_case(lib, rng, dev, case):
@@ -789,27 +839,25 @@ def _first_stage(optimizer, density, extra, energies, line_search) -> dict:
 
 #: device kernels of the hand-written kernels in a trace, by wrapper; the
 #: length cotangents share one template, told apart by its rank argument C
-_LADDER_KERNELS = (("rbf_gram_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *0\b"),
-                   ("rbf_predict_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *[12]\b"),
-                   ("rbf_gram_vjp_points", r"rbf_gram_vjp_points_kernel"),
-                   ("rbf_gram", r"rbf_gram_kernel"),
-                   ("rbf_predict_mean", r"rbf_predict_(partial|reduce)_kernel"))
+_KERNEL_PATTERNS = (("rbf_gram_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *0\b"),
+                    ("rbf_predict_vjp", r"rbf_vjp_kernel<[^,]+, *\d+, *[12]\b"),
+                    ("rbf_gram_vjp_points", r"rbf_gram_vjp_points_kernel"),
+                    ("rbf_gram", r"rbf_gram_kernel"),
+                    ("rbf_predict_mean", r"rbf_predict_(partial|reduce)_kernel"))
 #: the first design's two kernels of a length cotangent: no call may launch them
 _TWO_KERNEL_VJP = ("rbf_vjp_partial_kernel", "rbf_vjp_reduce_kernel")
 
 
-def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
-                 device: str = "cuda") -> dict:
-    """Phase 10's trace: the ladder's first zoom stage once more inside
-    ``torch.profiler``, recording the device's activity only (the CUDA
-    runtime's calls and the device's operations: recording every host op
-    too more than doubles the stage's wall).  From the profiler's events
-    (not a chrome export: ~10^6 events): the device-busy share of the traced
-    window and of the untraced stage's wall (``untraced_s``), device time by
-    family with each hand-written kernel apart, the zoom's iterations, loss
-    evaluations and host pulls, and each length cotangent's device kernels
-    against its wrapper's launches: one kernel a call, and no kernel of the
-    two-kernel design."""
+def device_trace(run, untraced_s: float, device: str = "cuda"):
+    """``run()`` once more inside ``torch.profiler``, recording the device's
+    activity only (the CUDA runtime's calls and the device's operations:
+    recording every host op too more than doubles a zoom stage's wall).
+    Returns ``run``'s result and, from the profiler's events (not a chrome
+    export: a ladder stage is ~10^6 events), the traced wall, the
+    device-busy share of the traced window and of the untraced wall
+    (``untraced_s``), device time by family with each hand-written kernel
+    apart, the device kernels of each wrapper against its launches, and the
+    zoom's iterations, loss evaluations and host pulls in the window."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -821,8 +869,10 @@ def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
     zoom0, launch0 = dict(O.ZOOM_COUNTS), dict(GK.LAUNCHES)
     _sync(device)
     with profile(activities=activities) as prof:
-        stage = _first_stage(optimizer, density, extra, energies, "zoom")
+        t0 = time.perf_counter()
+        out = run()
         _sync(device)
+        traced_s = time.perf_counter() - t0
     zoom = _zoom_summary({k: O.ZOOM_COUNTS[k] - zoom0[k] for k in zoom0})
     calls = {k: GK.LAUNCHES[k] - launch0[k] for k in GK.LAUNCHES}
     t0 = time.perf_counter()
@@ -830,10 +880,10 @@ def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
     first = min(e.start_ns() for e in events)
     window = max(e.end_ns() for e in events) - first
     device_events = [e for e in events if e.device_type() != torch.autograd.DeviceType.CPU]
-    families, kernels = {}, {name: 0 for name, _ in _LADDER_KERNELS}
+    families, kernels = {}, {name: 0 for name, _ in _KERNEL_PATTERNS}
     for e in device_events:
         name, ns = e.name(), e.end_ns() - e.start_ns()
-        family = next((k for k, pattern in _LADDER_KERNELS if re.search(pattern, name)), None)
+        family = next((k for k, pattern in _KERNEL_PATTERNS if re.search(pattern, name)), None)
         if family is not None:
             kernels[family] += 1
         else:
@@ -844,8 +894,8 @@ def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
     busy = _busy((e.start_ns(), e.end_ns()) for e in device_events)
     two_kernel = sorted({e.name()[:80] for e in device_events
                          if any(k in e.name() for k in _TWO_KERNEL_VJP)})
-    result = dict(
-        traced_s=stage["seconds"], untraced_s=untraced_s, error=stage["error"], zoom=zoom,
+    return out, dict(
+        traced_s=traced_s, untraced_s=untraced_s, zoom=zoom,
         window_ms=window / 1e6, device_busy_ms=busy / 1e6,
         device_busy_share=busy / window if window else 0.0,
         busy_share_of_untraced=busy / 1e9 / untraced_s, device_ops=len(device_events),
@@ -854,13 +904,56 @@ def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
                   for f, (c, ns) in sorted(families.items(), key=lambda kv: -kv[1][1])},
         device_kernels=kernels, launches=calls, two_kernel_names=two_kernel,
         parse_s=time.perf_counter() - t0)
+
+
+def ladder_trace(optimizer, density, extra, energies, untraced_s: float,
+                 device: str = "cuda") -> dict:
+    """Phase 10's trace (``device_trace``): the ladder's first zoom stage once
+    more; each length cotangent must run one device kernel a call, and no
+    kernel of the two-kernel design."""
+    stage, result = device_trace(
+        lambda: _first_stage(optimizer, density, extra, energies, "zoom"), untraced_s, device)
+    result["error"] = stage["error"]
+    calls, kernels = result["launches"], result["device_kernels"]
     if device == "cuda":
         for name in LENGTH_VJPS:
             if not calls[name] or kernels[name] != calls[name]:
                 raise AssertionError(f"ladder trace: {calls[name]} {name} calls ran "
                                      f"{kernels[name]} device kernels")
-        if two_kernel:
-            raise AssertionError(f"ladder trace: two-kernel cotangents {two_kernel}")
+        if result["two_kernel_names"]:
+            raise AssertionError(f"ladder trace: two-kernel cotangents "
+                                 f"{result['two_kernel_names']}")
+    return result
+
+
+def validation_trace(coords, values, da, untraced_s: float, device: str = "cuda") -> dict:
+    """Phase 14's trace (``device_trace``): one full-ARD ``screenshot_fit``
+    (the zoom) once more.  Each gradient evaluation backs through two Grams
+    (the fit's and the NLL's), each Gram's backward must be one
+    ``rbf_gram_vjp_points`` call for both point sets (``z = W x``), and each
+    call one device kernel: 2 launches an evaluation, where the one-sided
+    kernel took 4 (one a point set)."""
+    from gple_tpu_torch import validation as V
+    from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.sampler.keys import RandomKeys
+
+    reads0 = dict(GK.POINTS_VJP_READS)
+    fit, result = device_trace(
+        lambda: V.screenshot_fit(RandomKeys(0, "cpu"), coords, values, da, full_ard=True,
+                                 device=device), untraced_s, device)
+    reads = {k: v - reads0.get(k, 0) for k, v in GK.POINTS_VJP_READS.items()}
+    calls, evals = result["launches"]["rbf_gram_vjp_points"], result["zoom"]["evaluations"]
+    one_sided = sum(len(sides) * n for (_, sides), n in reads.items())
+    result.update(mse=fit.mse, points_launches_per_evaluation=calls / max(evals, 1),
+                  one_sided_launches_per_evaluation=one_sided / max(evals, 1),
+                  points_reads={f"strides {list(st)} sides {sides}": n
+                                for (st, sides), n in reads.items() if n})
+    if device == "cuda":
+        kernels = result["device_kernels"]["rbf_gram_vjp_points"]
+        if not (calls and kernels == calls and calls == 2 * evals and one_sided == 2 * calls):
+            raise AssertionError(f"validation trace: {evals} evaluations made {calls} "
+                                 f"rbf_gram_vjp_points calls, {kernels} device kernels, "
+                                 f"{one_sided} one-sided launches")
     return result
 
 
@@ -1046,10 +1139,11 @@ def parity_phase():
     return launches, by_shape, resume_by_shape, walls
 
 
-def new_shapes_phase(what: str, known, *by_shapes):
+def new_shapes_phase(what: str, known, *by_shapes, extra=()):
     """Phases 8, 12 and 15: phase 3's checks and times at every (kernel,
     shape) that the ``what`` phases launched (``by_shapes``, their
-    ``LAUNCHES_BY_SHAPE``) and no earlier phase checked (``known``)."""
+    ``LAUNCHES_BY_SHAPE``) and no earlier phase checked (``known``), and at
+    the backward cases ``extra`` that neither covers."""
     import gc
 
     from gple_tpu_torch.ops import kernel_bench as KB
@@ -1060,6 +1154,8 @@ def new_shapes_phase(what: str, known, *by_shapes):
     torch.cuda.empty_cache()
     keys = set().union(*by_shapes)
     grams, predicts, vjps = KB.cases_from_launches(keys, what, known=known)
+    seen = set(known) | {c.key for c in vjps}
+    vjps += tuple(c for c in extra if c.key not in seen)
     cases = kernel_phase(grams, predicts, vjps)
     log(f"{what} kernel phase: {len(cases)} new (kernel, shape) cases")
     return cases
@@ -1306,6 +1402,14 @@ def validation_phase(se_res, shots, val_dvr):
     torch.cuda.synchronize()
     walls["tilted_pair_s"] = time.perf_counter() - t0
     launches, by_shape = dict(GK.LAUNCHES), dict(GK.LAUNCHES_BY_SHAPE)
+    points_reads = {f"strides {list(st)} sides {sides}": dict(
+        launches=n, read_a=GK.points_vjp_read(st, "a"), read_b=GK.points_vjp_read(st, "b"))
+        for (st, sides), n in GK.POINTS_VJP_READS.items()}
+    log("validation: the cotangents rbf_gram_vjp_points read: " + json.dumps(points_reads))
+    t_tilt = f"t{se_res.times[TILT_FRAME]:g}"
+    trace = validation_trace(coords, shots[TILT_FRAME].ravel(), da,
+                             walls[f"screenshot_{t_tilt}_full_ard_s"])
+    log(f"validation traced full-ARD fit ({t_tilt}, 200 points): " + json.dumps(trace))
 
     snaps = {f"t{se_res.times[i]:g}_{name}": dict(
         mse=f.mse, rel_rmse=float(np.sqrt(f.mse) / np.abs(shots[i]).max()), nll=f.nll,
@@ -1322,7 +1426,7 @@ def validation_phase(se_res, shots, val_dvr):
                           for fr in evolve],
                   tilted=dict(axis_mse=tilt[False].mse, full_mse=tilt[True].mse,
                               w10=float(tilt[True].state.params.lengths[1, 0])),
-                  launches=launches)
+                  launches=launches, points_reads=points_reads)
     log("validation: " + json.dumps(result))
 
     def within(shot):
@@ -1332,7 +1436,6 @@ def validation_phase(se_res, shots, val_dvr):
     # every fit within the bounds, except the axis-aligned fit of the tilted
     # production frame, which is recorded (its population is what the full
     # ARD repairs) and must lose to the full-ARD fit
-    t_tilt = f"t{se_res.times[TILT_FRAME]:g}"
     t_post = f"t{se_res.times[POST_FRAME]:g}"
     for name, shot in snaps.items():
         if name.startswith(t_post):
@@ -2273,6 +2376,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from gple_tpu_torch.ops import _build
     from gple_tpu_torch.ops import gram_kernels as GK
+    from gple_tpu_torch.ops import kernel_bench as KB
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2304,7 +2408,8 @@ def main() -> int:
     _, se_res, shots, val_dvr = oracles_phase()
     val_launches, val_by_shape, _ = validation_phase(se_res, shots, val_dvr)
     del se_res, shots, val_dvr
-    cases += new_shapes_phase("validation", _keys(cases), val_by_shape)
+    cases += new_shapes_phase("validation", _keys(cases), val_by_shape,
+                              extra=KB.POINTS_VJP_CASES)
     boost_launches, boost_by_shape, boost_drv = booster_phase()
     booster_agreement(boost_drv)
     del boost_drv

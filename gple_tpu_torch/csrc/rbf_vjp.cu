@@ -13,12 +13,12 @@
 //                    its alpha cotangent is rbf_predict_mean with the test and
 //                    training points swapped).
 //
-// The points cotangent of the Gram, rbf_gram_vjp_points, computes
+// The points cotangent of the Gram, rbf_gram_vjp_points, computes both point
+// sets' cotangents in one launch (a Gram backward whose points both need a
+// gradient: validation's full-ARD z = W x), or either one:
 //
-//   dxa[b, i, d] = sum_j G[b, i, j] * exp(-1/2 |za_i - zb_j|^2) * (zb_jd - za_id) / l[b, d];
-//
-// the cotangent of the other point set is the same kernel with the points
-// swapped and G read transposed through its strides (no copy).
+//   dxa[b, i, d] = sum_j G[b, i, j] * exp(-1/2 |za_i - zb_j|^2) * (zb_jd - za_id) / l[b, d],
+//   dxb[b, j, d] = sum_i G[b, i, j] * exp(-1/2 |za_i - zb_j|^2) * (za_id - zb_jd) / l[b, d].
 //
 // They recompute the exponentials and never materialise a Gram.
 //
@@ -39,9 +39,11 @@
 // O((M + N) (D + C)) bytes and issues 4D + 16 + C FP64 instructions a pair:
 // the FP64 pipe bounds it, and it needs enough independent exp chains on
 // every SM to cover the DFMA latency.  rbf_gram_vjp_points reads the
-// cotangent once and issues 3D + 17 FP64 instructions a pair: bytes bound it
-// too, but at validation's shapes ((1 | 7, 200, 200), 0.1-0.7 us of bytes) a
-// launch's latency is the floor.
+// cotangent once against 4D + 17 FP64 instructions a pair (one distance and
+// one exp, D multiply-adds into each side's sum): at D = 2 its bytes bound
+// it (0.10 us at B = 1, 200^2, against 0.06 us of FP64 work), but neither
+// is near what bounds it at validation's shapes: a launch's latency and the
+// chain of dependent steps inside a block.
 //
 // * Length cotangents: one kernel, one launch a call (the first design
 //   launched a partial-sum kernel and a reduce kernel; the second launch's
@@ -88,18 +90,49 @@
 //   rows, takes 5-7.  The whole grid is one wave, so each block's latency
 //   (its loads, its rows' exp chains, its ticket) is most of a call, and its
 //   bytes and its FP64 work overlap only partly.
-// * Points cotangent: row reductions, one warp per row i, kPointRows rows a
-//   block, grid (row tiles, B).  The block stages a tile of kPointTile scaled
-//   columns zb_j in shared memory (one division per column and block, laid
-//   out by dimension so a warp's reads are contiguous); each lane walks the
-//   tile's columns lane, lane + 32, ... in order, and the warp adds its lanes'
-//   sums by an xor butterfly.  A dense cotangent is read along j (coalesced);
-//   read transposed, a warp's 32 loads fall in 32 sectors, which the L2 holds
-//   at these sizes.
+// * Points cotangent (design (b)): one launch a Gram backward, both point
+//   sets (or either: a null output is a side not computed).  Grid (tiles of
+//   xa's side + tiles of xb's side, B), kPairThreads = 256 threads a block;
+//   a block owns `own` points of one side (rows of G for xa's, columns for
+//   xb's) and sums each over the whole other axis, so no sum leaves the
+//   block: no scratch, no ticket, no float atomics, and two launches on the
+//   same inputs are bit-identical.  Each pair's distance and exp are
+//   computed once a side: 2 (3D + 17) FP64 instructions a pair, about 1.8
+//   times the function's 4D + 17 at D = 2.  Design (a), one exp a pair over
+//   tiles of pairs whose row and column partials the last block to take a
+//   ticket adds, took 9.6 | 8.1 | 30.4 us against (b)'s 3.1 | 3.0 | 11.4 at
+//   B = 1, 200^2 | 160^2 | 1024^2 (kernel_bench --variants, CUDA-graph
+//   replays on an H100 80GB HBM3 at 700 W, as below): its serial tail
+//   outweighs the halved FP64 work even at 1024^2, so it was removed.
+//   - A chunk of kPairChunk points of the summed axis: every global read is
+//     started before any is used (`own` elements of G a thread by cp.async
+//     straight into shared memory, one point a thread into registers, in
+//     the first chunk the block's own points and one reciprocal a length,
+//     which replaces every division), then one barrier.  G is staged along
+//     the axis it is contiguous in: side a along its rows, side b across
+//     them in runs of `own` >= 4 elements (whole 32-byte sectors), so no
+//     side reads it across its columns; a transposed G the other way round,
+//     other layouts through both strides.  Validation passes both a
+//     contiguous and a transposed cotangent, half the backwards each.
+//   - per = 256 / own threads a point, each with kPairUnroll pairs in
+//     flight (branch-free: a pair past the chunk's end has a zero weight),
+//     summed by an xor butterfly and then the point's warps in index order.
+//   - gram_kernels.points_plan sizes `own` for about two blocks an SM
+//     (kernel_bench --sweep): own = 4 at validation's B = 1, 160^2 and
+//     200^2 (80 and 100 blocks), 8 at 1024^2 (one wave; 4 is two).
+//   What bounds it at validation's shapes (kernel_bench --variants, CUDA-
+//   graph replays, B = 1, 200^2): ~3 us a call against 0.10 us of bytes
+//   (and 0.11 us of its own FP64 work); of it the launch 1.2 us (the
+//   kernel returning at once), the chunk's reads and barrier 1.0
+//   (returning after the barrier: 2.3), the exps, sums and writes the rest
+//   (without the exps 0.15 less).
+//   The first design (one warp a row, one side a launch, divisions, one
+//   exp chain a lane) took 3.9 us for xa's side (G along its rows) and 4.1
+//   for xb's (G^T), each launch alone.
 //
 // Inputs are read through their strides (a stride-0 batch broadcasts one
 // point set; a broadcast cotangent is read in place); the outputs are
-// contiguous, (B, D) and (B, Na, D).  Templated on float and double; the
+// contiguous, (B, D), (B, Na, D) and (B, Nb, D).  Templated on float and double; the
 // port's path uses double.  Launches on the caller's stream, allocates
 // nothing (the length cotangents take the caller's scratch of
 // gram_kernels.vjp_plan partials and its counter, which must hold 0; two
@@ -400,90 +433,170 @@ int launch_rbf_vjp(const T* xa, const T* xb, const T* l, const T* gw, const T* a
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows (warps) per block of the points cotangent: gram_kernels.POINTS_VJP_ROWS_PER_BLOCK
-constexpr int kPointRows = 8;
-constexpr int kPointTile = kPointRows * 32;   // columns staged per tile
+// -- the points cotangent: both point sets of a Gram in one launch ------------
 
+constexpr int kPairThreads = 256;
+constexpr int kPairChunk = 256;    // sum-axis points a block stages at a time
+constexpr int kPairMaxOwn = 16;    // own points a block: gram_kernels.POINTS_MAX_OWN
+constexpr int kPairWarps = kPairThreads / 32;
+constexpr int kPairUnroll = 4;     // independent pairs (exp chains) a thread has in flight
+
+// Block (x, b): x < tiles_a takes `own` rows i of G (the cotangent of xa),
+// x >= tiles_a `own` columns j (that of xb); either way the block sums over
+// the whole other axis, chunk by chunk, so no sum leaves the block.
 template <typename T, int D>
-__global__ void __launch_bounds__(kPointTile)
+__global__ void __launch_bounds__(kPairThreads)
 rbf_gram_vjp_points_kernel(const T* __restrict__ xa, const T* __restrict__ xb,
                            const T* __restrict__ l, const T* __restrict__ gout,
-                           T* __restrict__ out, int na, int nb,
+                           T* __restrict__ out_a, T* __restrict__ out_b, int na, int nb,
+                           int own_shift, int tiles_a,
                            long long sa_b, long long sa_n, long long sa_d,
                            long long sb_b, long long sb_n, long long sb_d,
                            long long sl_b, long long sl_d,
                            long long sg_b, long long sg_i, long long sg_j) {
-  __shared__ T s_zb[D][kPointTile];
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const int own = 1 << own_shift;
+  const int per_shift = 8 - own_shift;           // log2 of the threads an own point
+  const int per = 1 << per_shift;
+  T* s_g = reinterpret_cast<T*>(s_raw);          // [own][kPairChunk + 1]: G, own-major
+  T* s_z = s_g + own * (kPairChunk + 1);         // [D][kPairChunk]: scaled sum-axis points
+  T* s_red = s_z + D * kPairChunk;               // [kPairWarps][D]: warp sums
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int b = blockIdx.y;
-  const long long i = static_cast<long long>(blockIdx.x) * kPointRows + (tid >> 5);
-  const bool row_ok = i < na;
+  const bool side_a = static_cast<int>(blockIdx.x) < tiles_a;
+  const long long o0 = static_cast<long long>(side_a ? blockIdx.x : blockIdx.x - tiles_a)
+                       << own_shift;
+  // side a: own points xa (rows of G), summed over xb; side b the other way
+  const T* xo = side_a ? xa + b * sa_b : xb + b * sb_b;
+  const T* xk = side_a ? xb + b * sb_b : xa + b * sa_b;
+  const long long so_n = side_a ? sa_n : sb_n, so_d = side_a ? sa_d : sb_d;
+  const long long sk_n = side_a ? sb_n : sa_n, sk_d = side_a ? sb_d : sa_d;
+  const long long sg_own = side_a ? sg_i : sg_j, sg_sum = side_a ? sg_j : sg_i;
+  const int n_own = side_a ? na : nb, n_sum = side_a ? nb : na;
+  T* out = side_a ? out_a : out_b;
+  const int n_o = static_cast<int>(min(static_cast<long long>(own), n_own - o0));
+  // stage the tile along the axis G is contiguous in: the sum axis (G's rows
+  // on side a) unless only the own axis is (G's rows on side b, in runs of
+  // `own` elements; a transposed G the other way round)
+  const bool sum_fast = sg_sum == 1 || sg_own != 1;
+  const T* gt = gout + b * sg_b + o0 * sg_own;
 
-  T len[D], za[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    len[d] = l[b * sl_b + d * sl_d];
-    za[d] = row_ok ? xa[b * sa_b + i * sa_n + d * sa_d] / len[d] : T(0);
-    acc[d] = T(0);
-  }
-  const T* grow = gout + b * sg_b + (row_ok ? i : 0) * sg_i;
+  const int r = tid >> per_shift;                // this thread's own point
+  const int p = tid & (per - 1);                 // its place among the point's threads
+  const bool o_ok = r < n_o;
 
-  for (long long j0 = 0; j0 < nb; j0 += kPointTile) {
-    const long long jt = j0 + tid;
+  T inv[D], zo[D], acc[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      s_zb[d][tid] = jt < nb ? xb[b * sb_b + jt * sb_n + d * sb_d] / len[d] : T(0);
-    __syncthreads();
-    if (row_ok) {
-      const int cols = static_cast<int>(min(static_cast<long long>(kPointTile), nb - j0));
-#pragma unroll 4
-      for (int c = lane; c < cols; c += 32) {
-        T diff[D];
-        T d2 = T(0);
+  for (int d = 0; d < D; ++d) acc[d] = T(0);
+  for (int k0 = 0; k0 < n_sum; k0 += kPairChunk) {
+    const int kc = min(kPairChunk, n_sum - k0);
+    if (k0 > 0) __syncthreads();                 // the last chunk's tile is read
+    // the chunk's global reads, all started before any is used: `own`
+    // elements of G a thread, straight into shared memory, and one point
+    for (int e = tid; e < (own << 8); e += kPairThreads) {
+      const int rr = sum_fast ? e >> 8 : e & (own - 1);
+      const int kk = sum_fast ? e & (kPairChunk - 1) : e >> own_shift;
+      if (rr < n_o && kk < kc)
+        cp_async<sizeof(T)>(&s_g[rr * (kPairChunk + 1) + kk],
+                            gt + rr * sg_own + (k0 + kk) * sg_sum);
+    }
+    cp_async_commit();
+    T zk[D];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          diff[d] = s_zb[d][c] - za[d];
-          d2 += diff[d] * diff[d];
-        }
-        const T wk = grow[(j0 + c) * sg_j] * exp_t(T(-0.5) * d2);
+    for (int d = 0; d < D; ++d) zk[d] = tid < kc ? xk[(k0 + tid) * sk_n + d * sk_d] : T(0);
+    if (k0 == 0) {                               // under the first chunk's reads
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] += wk * diff[d];
+      for (int d = 0; d < D; ++d) {
+        zo[d] = o_ok ? xo[(o0 + r) * so_n + d * so_d] : T(0);
+        inv[d] = T(1) / l[b * sl_b + d * sl_d];  // one division a length
+        zo[d] *= inv[d];
       }
     }
+    if (tid < kc) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) s_z[d * kPairChunk + tid] = zk[d] * inv[d];
+    }
+    cp_async_wait<0>();
     __syncthreads();
+    if (o_ok) {
+      // kPairUnroll pairs at a time, branch-free: a pair past the chunk's
+      // end reads its last point with a zero weight
+      const T* grow = s_g + r * (kPairChunk + 1);
+      for (int k1 = p; k1 < kc; k1 += kPairUnroll * per) {
+        T wk[kPairUnroll], diff[kPairUnroll][D];
+#pragma unroll
+        for (int u = 0; u < kPairUnroll; ++u) {
+          const int k = min(k1 + u * per, kc - 1);
+          T d2 = T(0);
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            diff[u][d] = s_z[d * kPairChunk + k] - zo[d];
+            d2 += diff[u][d] * diff[u][d];
+          }
+          wk[u] = (k1 + u * per < kc ? grow[k] : T(0)) * exp_t(T(-0.5) * d2);
+        }
+#pragma unroll
+        for (int u = 0; u < kPairUnroll; ++u)
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[d] += wk[u] * diff[u][d];
+      }
+    }
   }
 
-  // the warp's sums, by a fixed-order butterfly
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  // the point's sums in a fixed order: an xor butterfly over its lanes, then
+  // its warps in index order
+  for (int off = min(per, 32) >> 1; off > 0; off >>= 1) {
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
   }
-  if (row_ok && lane == 0) {
+  if (per > 32) {
+    if ((tid & 31) == 0) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) s_red[(tid >> 5) * D + d] = acc[d];
+    }
+    __syncthreads();
+    if (p == 0) {
+      const int w0 = tid >> 5;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        acc[d] = s_red[w0 * D + d];
+        for (int q = 1; q < per >> 5; ++q) acc[d] += s_red[(w0 + q) * D + d];
+      }
+    }
+  }
+  if (o_ok && p == 0) {
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      out[(static_cast<long long>(b) * na + i) * D + d] = acc[d] / len[d];
+      out[((static_cast<long long>(b) * n_own) + o0 + r) * D + d] = acc[d] * inv[d];
   }
 }
 
+// out_a (B, Na, D) and out_b (B, Nb, D), contiguous; either may be null (that
+// side is not computed).  own: points a block, a power of two in [1, kPairMaxOwn]
 template <typename T>
-int launch_rbf_gram_vjp_points(const T* xa, const T* xb, const T* l, const T* gout, T* out,
-                               int batch, int na, int nb, int d,
+int launch_rbf_gram_vjp_points(const T* xa, const T* xb, const T* l, const T* gout, T* out_a,
+                               T* out_b, int batch, int na, int nb, int d, int own,
                                long long sa_b, long long sa_n, long long sa_d,
                                long long sb_b, long long sb_n, long long sb_d,
                                long long sl_b, long long sl_d,
                                long long sg_b, long long sg_i, long long sg_j, void* stream) {
-  if (d < 1 || d > 4 || batch < 1 || batch > 65535 || na < 1 || nb < 1)
+  int own_shift = 0;
+  while ((1 << own_shift) < own) ++own_shift;
+  if (d < 1 || d > 4 || batch < 1 || batch > 65535 || na < 1 || nb < 1 ||
+      own != (1 << own_shift) || own > kPairMaxOwn || (out_a == nullptr && out_b == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((na + kPointRows - 1) / kPointRows, batch);
+  const long long tiles_a = out_a ? (static_cast<long long>(na) + own - 1) / own : 0;
+  const long long tiles_b = out_b ? (static_cast<long long>(nb) + own - 1) / own : 0;
+  if (tiles_a + tiles_b >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles_a + tiles_b), batch);
+  const size_t smem = sizeof(T) * (own * (kPairChunk + 1) + d * kPairChunk + kPairWarps * d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GPLE_POINTS_CASE(DIM)                                                           \
   case DIM:                                                                             \
-    rbf_gram_vjp_points_kernel<T, DIM><<<grid, kPointTile, 0, s>>>(                     \
-        xa, xb, l, gout, out, na, nb, sa_b, sa_n, sa_d, sb_b, sb_n, sb_d, sl_b, sl_d,   \
-        sg_b, sg_i, sg_j);                                                              \
+    rbf_gram_vjp_points_kernel<T, DIM><<<grid, kPairThreads, smem, s>>>(                \
+        xa, xb, l, gout, out_a, out_b, na, nb, own_shift, static_cast<int>(tiles_a),    \
+        sa_b, sa_n, sa_d, sb_b, sb_n, sb_d, sl_b, sl_d, sg_b, sg_i, sg_j);              \
     break;
   switch (d) {
     GPLE_POINTS_CASE(1)
@@ -554,25 +667,27 @@ int rbf_predict_vjp_f64(const double* xt, const double* xtr, const double* l, co
 }
 
 int rbf_gram_vjp_points_f32(const float* xa, const float* xb, const float* l,
-                            const float* gout, float* out, int batch, int na, int nb, int d,
+                            const float* gout, float* out_a, float* out_b, int batch, int na,
+                            int nb, int d, int own,
                             long long sa_b, long long sa_n, long long sa_d,
                             long long sb_b, long long sb_n, long long sb_d,
                             long long sl_b, long long sl_d,
                             long long sg_b, long long sg_i, long long sg_j, void* stream) {
-  return launch_rbf_gram_vjp_points<float>(xa, xb, l, gout, out, batch, na, nb, d, sa_b, sa_n,
-                                           sa_d, sb_b, sb_n, sb_d, sl_b, sl_d, sg_b, sg_i,
-                                           sg_j, stream);
+  return launch_rbf_gram_vjp_points<float>(xa, xb, l, gout, out_a, out_b, batch, na, nb, d,
+                                           own, sa_b, sa_n, sa_d, sb_b, sb_n, sb_d, sl_b, sl_d,
+                                           sg_b, sg_i, sg_j, stream);
 }
 
 int rbf_gram_vjp_points_f64(const double* xa, const double* xb, const double* l,
-                            const double* gout, double* out, int batch, int na, int nb, int d,
+                            const double* gout, double* out_a, double* out_b, int batch,
+                            int na, int nb, int d, int own,
                             long long sa_b, long long sa_n, long long sa_d,
                             long long sb_b, long long sb_n, long long sb_d,
                             long long sl_b, long long sl_d,
                             long long sg_b, long long sg_i, long long sg_j, void* stream) {
-  return launch_rbf_gram_vjp_points<double>(xa, xb, l, gout, out, batch, na, nb, d, sa_b,
-                                            sa_n, sa_d, sb_b, sb_n, sb_d, sl_b, sl_d, sg_b,
-                                            sg_i, sg_j, stream);
+  return launch_rbf_gram_vjp_points<double>(xa, xb, l, gout, out_a, out_b, batch, na, nb, d,
+                                            own, sa_b, sa_n, sa_d, sb_b, sb_n, sb_d, sl_b,
+                                            sl_d, sg_b, sg_i, sg_j, stream);
 }
 
 }  // extern "C"

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "rbf_predict_mean": [_P] * 6 + [_I] * 7 + [_L] * 11 + [_P],
     "rbf_gram_vjp": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_P],
     "rbf_predict_vjp": [_P] * 8 + [_I] * 6 + [_L] * 14 + [_P],
-    "rbf_gram_vjp_points": [_P] * 5 + [_I] * 4 + [_L] * 11 + [_P],
+    "rbf_gram_vjp_points": [_P] * 6 + [_I] * 5 + [_L] * 11 + [_P],
 }
 
 _C_TYPES = {"int": _I, "long long": _L}

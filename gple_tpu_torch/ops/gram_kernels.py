@@ -16,9 +16,8 @@ Both entry points are differentiable in the lengths (the predict also in
 hand-written kernels (``csrc/rbf_vjp.cu``), each beside its plain version:
 ``rbf_gram_vjp`` (the length cotangent of a Gram from its dense cotangent),
 ``rbf_predict_vjp`` (the length cotangent of a predict mean, whose weight
-``g alpha^T`` has rank C) and ``rbf_gram_vjp_points`` (a Gram's cotangent
-with respect to one point set; the other set's is the same kernel with the
-points swapped and the cotangent read transposed through its strides).  The
+``g alpha^T`` has rank C) and ``rbf_gram_vjp_points`` (a Gram's cotangents
+with respect to both point sets, or either one, in one launch).  The
 full-ARD matrix lengths of validation reach the Gram as transformed points
 ``z = W x`` with unit lengths, so their gradient runs through the last one.
 The ``alpha`` cotangent of a predict is ``rbf_predict_mean`` with the test
@@ -60,6 +59,9 @@ LAUNCHES_BY_SHAPE: dict = {}
 #: how ``rbf_gram_vjp`` read its cotangents since the last reset (see
 #: :func:`gram_vjp_read`), launches by read
 GRAM_VJP_READS: dict = {}
+#: the cotangents ``rbf_gram_vjp_points`` read since the last reset, launches
+#: by (strides, sides asked); :func:`points_vjp_read` names the branch
+POINTS_VJP_READS: dict = {}
 
 #: phase-space dimensions the kernels are instantiated for
 MAX_DIM = 4
@@ -79,8 +81,13 @@ VJP_COLS_PER_BLOCK = VJP_THREADS * VJP_COLS_PER_THREAD
 #: most rows a length-cotangent block walks (``kMaxRows``: their scaled points
 #: and g rows sit in shared memory)
 VJP_MAX_ROWS = 256
-#: rows (one warp each) of one block of the points cotangent (``kPointRows``)
-POINTS_VJP_ROWS_PER_BLOCK = 8
+#: threads of a block of the points cotangent and the sum-axis points it
+#: stages at a time (``kPairThreads``, ``kPairChunk`` in csrc/rbf_vjp.cu)
+POINTS_THREADS = 256
+POINTS_CHUNK = 256
+#: most own points (rows of G for xa's side, columns for xb's) a block takes
+#: (``kPairMaxOwn``: their slice of G sits in shared memory)
+POINTS_MAX_OWN = 16
 _MAX_GRID_X = 2**31 - 1
 _MAX_GRID_YZ = 65535
 _MAX_INT = 2**31 - 1
@@ -96,6 +103,14 @@ _VJP_BLOCKS_PER_SM = 4
 #: fewest rows a length-cotangent block walks: at validation's B = 1 shapes
 #: (~150-200 rows) short blocks in a sparse grid finish first
 _VJP_MIN_ROWS = 2
+#: points-cotangent blocks the plan aims to put on each SM (three fit at the
+#: kernel's 80 registers a thread): ``kernel_bench --sweep`` found own = 4
+#: fastest at B = 1, 160^2 and 200^2 and own = 8 at 1024^2, one wave of
+#: 100, 80 and 256 blocks; own = 4 at 1024^2 is two waves
+_POINTS_BLOCKS_PER_SM = 2
+#: fewest own points a points-cotangent block takes: xb's side stages G's
+#: rows in runs of this many elements, 4 doubles = one 32-byte sector
+_POINTS_MIN_OWN = 4
 
 
 def reset_launches() -> None:
@@ -103,6 +118,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     LAUNCHES_BY_SHAPE.clear()
     GRAM_VJP_READS.clear()
+    POINTS_VJP_READS.clear()
 
 
 def _count_launch(name: str, shape: tuple) -> None:
@@ -167,6 +183,14 @@ def gram_vjp_points_plain(lengths, xa, xb, gout):
     diff = zb[..., None, :, :] - za[..., :, None, :]
     k = torch.exp(-0.5 * torch.sum(diff**2, dim=-1))
     return torch.sum((gout * k)[..., None] * diff, dim=-2) / lengths[..., None, :]
+
+
+def gram_vjp_points_pair_plain(lengths, xa, xb, gout, want_a=True, want_b=True):
+    """``(d_xa, d_xb)``, the plain counterpart of :func:`gram_vjp_points_cuda`:
+    :func:`gram_vjp_points_plain` for ``xa`` and, with the point sets swapped
+    and the cotangent transposed, for ``xb``; a side not asked for is None."""
+    return (gram_vjp_points_plain(lengths, xa, xb, gout) if want_a else None,
+            gram_vjp_points_plain(lengths, xb, xa, gout.transpose(-1, -2)) if want_b else None)
 
 
 # -- CUDA launchers ----------------------------------------------------------------
@@ -462,11 +486,64 @@ def predict_vjp_cuda(lengths, x_test, x_train, alpha, g):
     return out
 
 
-def gram_vjp_points_cuda(lengths, xa, xb, gout):
+class PointsPlan(NamedTuple):
+    """A launch of the points cotangent: grid (``tiles_a + tiles_b``,
+    ``batch``); block (x, b) takes ``own`` rows [x * own, min((x + 1) * own,
+    Na)) of G (the cotangent of xa) where x < ``tiles_a``, else ``own``
+    columns [(x - tiles_a) * own, ...) of G (that of xb), and sums each of
+    them over the whole other axis.  A side not asked for has no tiles."""
+
+    own: int
+    tiles_a: int
+    tiles_b: int
+    batch: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.tiles_a + self.tiles_b, self.batch
+
+
+@functools.lru_cache(maxsize=256)
+def points_plan(batch: int, na: int, nb: int, want_a: bool, want_b: bool,
+                num_sms: int) -> PointsPlan:
+    """The points cotangent's launch: own points a block, the power of two
+    that puts about ``_POINTS_BLOCKS_PER_SM`` blocks on each SM, at least
+    ``_POINTS_MIN_OWN`` and at most ``POINTS_MAX_OWN``.  Raises ValueError
+    where the grid would leave CUDA's limits or no side is asked for."""
+    points = batch * (na * want_a + nb * want_b)
+    need = _cdiv(points, num_sms * _POINTS_BLOCKS_PER_SM)
+    own = _POINTS_MIN_OWN
+    while own < min(need, POINTS_MAX_OWN):
+        own *= 2
+    tiles_a, tiles_b = _cdiv(na, own) * want_a, _cdiv(nb, own) * want_b
+    if (not (want_a or want_b) or not 1 <= batch <= _MAX_GRID_YZ or min(na, nb) < 1
+            or max(na, nb) > _MAX_INT or tiles_a + tiles_b > _MAX_GRID_X):
+        raise ValueError(f"points cotangent: B={batch}, Na={na}, Nb={nb}, sides "
+                         f"{(want_a, want_b)} outside the kernel's grid")
+    return PointsPlan(own, tiles_a, tiles_b, batch)
+
+
+def points_vjp_read(strides, side: str) -> str:
+    """How a points-cotangent block of ``side`` ("a": G's rows, "b": its
+    columns) stages its slice of a cotangent of ``strides`` (batch, row,
+    column) into shared memory: along the axis it sums over where G is
+    contiguous there, along its own points where only they are (a run of
+    ``own`` elements of each line), else through both strides."""
+    own, summed = (strides[1], strides[2]) if side == "a" else (strides[2], strides[1])
+    if summed == 1:
+        return "along the summed axis, contiguous"
+    if own == 1:
+        return "along the own points, runs of own"
+    return "strided"
+
+
+def gram_vjp_points_cuda(lengths, xa, xb, gout, want_a=True, want_b=True):
     """Launch ``rbf_gram_vjp_points`` on (B, D), (B, Na, D), (B, Nb, D) CUDA
     tensors and the Gram's cotangent (B, Na, Nb), read through its strides (a
-    transposed view is read in place); returns a new contiguous (B, Na, D)
-    cotangent of ``xa``."""
+    transposed or broadcast view in place); returns ``(d_xa, d_xb)``, new
+    contiguous (B, Na, D) and (B, Nb, D) cotangents of the two point sets,
+    both from one launch, or None for a side not asked for (the kernel gets
+    a null pointer for it).  One count a call."""
     _check_cuda("rbf_gram_vjp_points", lengths, xa, xb, gout)
     batch, na, d = xa.shape
     nb = xb.shape[1]
@@ -475,23 +552,26 @@ def gram_vjp_points_cuda(lengths, xa, xb, gout):
         raise ValueError(f"rbf_gram_vjp_points: shapes {tuple(lengths.shape)}, "
                          f"{tuple(xa.shape)}, {tuple(xb.shape)}, {tuple(gout.shape)} do not "
                          "form (B, D), (B, Na, D), (B, Nb, D), (B, Na, Nb)")
-    if (not 1 <= d <= MAX_DIM or batch > _MAX_GRID_YZ
-            or max(na, nb) > _MAX_INT - POINTS_VJP_ROWS_PER_BLOCK):
-        raise ValueError(f"rbf_gram_vjp_points: D={d}, B={batch}, Na={na}, Nb={nb} outside "
-                         "the kernel's range")
-    fn = _launcher("rbf_gram_vjp_points", xa.dtype)
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"rbf_gram_vjp_points: D={d} outside the kernel's range")
     dev = xa.device
     with torch.cuda.device(dev):
+        outs = [torch.empty((batch, n, d), dtype=xa.dtype, device=dev) if want else None
+                for n, want in ((na, want_a), (nb, want_b))]
         if batch * na * nb == 0:
-            return torch.zeros((batch, na, d), dtype=xa.dtype, device=dev)
-        out = torch.empty((batch, na, d), dtype=xa.dtype, device=dev)
+            return tuple(None if o is None else o.zero_() for o in outs)
+        plan = points_plan(batch, na, nb, bool(want_a), bool(want_b), _sm_count(dev))
+        fn = _launcher("rbf_gram_vjp_points", xa.dtype)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xa.data_ptr(), xb.data_ptr(), lengths.data_ptr(), gout.data_ptr(),
-                 out.data_ptr(), batch, na, nb, d, *xa.stride(), *xb.stride(),
-                 *lengths.stride(), *gout.stride(), stream)
+                 *(None if o is None else o.data_ptr() for o in outs), batch, na, nb, d,
+                 plan.own, *xa.stride(), *xb.stride(), *lengths.stride(), *gout.stride(),
+                 stream)
     _raise_on("rbf_gram_vjp_points", err)
     _count_launch("rbf_gram_vjp_points", (batch, na, nb, d, str(xa.dtype)[6:]))
-    return out
+    key = (tuple(gout.stride()), "ab"[0 if want_a else 1:2 if want_b else 1])
+    POINTS_VJP_READS[key] = POINTS_VJP_READS.get(key, 0) + 1
+    return tuple(outs)
 
 
 # -- autograd Functions ------------------------------------------------------------------
@@ -499,9 +579,10 @@ def gram_vjp_points_cuda(lengths, xa, xb, gout):
 class RBFGram(torch.autograd.Function):
     """:func:`gram_rbf` on flat operands (B, D), (B, Na, D), (B, Nb, D),
     differentiable in the lengths and in both point sets: the backward is
-    ``rbf_gram_vjp`` (lengths) and ``rbf_gram_vjp_points`` (each point set)
-    on the card, :func:`gram_vjp_plain` and :func:`gram_vjp_points_plain` on
-    the CPU."""
+    ``rbf_gram_vjp`` (lengths) and one ``rbf_gram_vjp_points`` launch for
+    whichever point sets need a gradient on the card,
+    :func:`gram_vjp_plain` and :func:`gram_vjp_points_pair_plain` on the
+    CPU."""
 
     @staticmethod
     def forward(ctx, lengths, xa, xb):
@@ -518,11 +599,10 @@ class RBFGram(torch.autograd.Function):
         d_len = d_xa = d_xb = None
         if ctx.needs_input_grad[0]:
             d_len = (gram_vjp_cuda if cuda else gram_vjp_plain)(lengths, xa, xb, gout)
-        points = gram_vjp_points_cuda if cuda else gram_vjp_points_plain
-        if ctx.needs_input_grad[1]:
-            d_xa = points(lengths, xa, xb, gout)
-        if ctx.needs_input_grad[2]:
-            d_xb = points(lengths, xb, xa, gout.transpose(-1, -2))
+        want_a, want_b = ctx.needs_input_grad[1:3]
+        if want_a or want_b:
+            points = gram_vjp_points_cuda if cuda else gram_vjp_points_pair_plain
+            d_xa, d_xb = points(lengths, xa, xb, gout, want_a, want_b)
         return d_len, d_xa, d_xb
 
 

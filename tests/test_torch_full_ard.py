@@ -5,11 +5,12 @@
   potential and kinetic integrals of a matrix-length fit match quadrature of
   its own prediction; the full-ARD snapshot fit beats the axis-aligned one on
   a tilted distribution.
-* The Gram's points cotangent (``gram_kernels.gram_vjp_points_plain``, the
-  plain version of the ``rbf_gram_vjp_points`` kernel, behind
-  ``RBFGram``'s backward): ``gradcheck``, and its value against ``jax.grad``
-  of ``gple_tpu.ops.kernels.gram`` with respect to both point sets, 1e-12
-  relative.
+* The Gram's points cotangent (``gram_kernels.gram_vjp_points_pair_plain``,
+  the plain version of the ``rbf_gram_vjp_points`` kernel's pair call, both
+  point sets at once, behind ``RBFGram``'s backward): ``gradcheck``, and its
+  values against ``jax.grad`` of ``gple_tpu.ops.kernels.gram`` with respect
+  to both point sets, vector and matrix lengths, B = 1-3, D = 1-4, Na != Nb,
+  1e-12 relative.
 * The integrals of a JAX matrix-length state carried across
   (``convert.to_torch``) against ``gple_tpu``'s, 1e-10 relative.
 * ``screenshot_fit`` against ``gple_tpu.validation.screenshot_fit`` on the
@@ -195,6 +196,58 @@ def test_points_cotangent_matches_jax_grad(lengths_kind):
     for o, r in zip(ours, refs):
         r = np.asarray(r)
         np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-12 * np.abs(r).max())
+
+
+#: (B, Na, Nb, D, lengths): vector lengths (B, D) or a lower-triangular W (B, D, D)
+PAIR_CASES = [(1, 9, 6, 2, "vector"), (2, 7, 11, 1, "vector"), (3, 4, 9, 4, "vector"),
+              (1, 6, 6, 2, "matrix"), (3, 5, 8, 3, "matrix"), (2, 12, 4, 4, "matrix")]
+
+
+@pytest.mark.parametrize("batch,na,nb,d,kind", PAIR_CASES)
+def test_points_pair_plain_matches_jax_grad(batch, na, nb, d, kind):
+    """Both outputs of the pair's plain version against ``jax.grad`` of
+    sum(G * gout) with respect to xa and xb (inputs from numpy).  Matrix
+    lengths reach the pair as z = W x with unit lengths, so the cotangent of
+    x is that of z times W."""
+    rng = np.random.default_rng(35 + batch * 10 + d)
+    xa, xb = rng.normal(size=(batch, na, d)), rng.normal(size=(batch, nb, d))
+    gout = rng.normal(size=(batch, na, nb))
+    if kind == "vector":
+        lengths = rng.uniform(0.5, 2.0, size=(batch, d))
+    else:
+        lengths = np.tril(rng.normal(scale=0.4, size=(batch, d, d)), -1)
+        lengths += np.einsum("bi,ij->bij", rng.uniform(0.6, 1.5, size=(batch, d)), np.eye(d))
+
+    def jf(a, b):  # one Gram a batch entry, as the JAX package batches it
+        return jnp.sum(jax.vmap(JRK.gram)(jnp.asarray(lengths), a, b) * gout)
+
+    refs = jax.grad(jf, argnums=(0, 1))(jnp.asarray(xa), jnp.asarray(xb))
+    g = t64(gout)
+    if kind == "vector":
+        ours = GK.gram_vjp_points_pair_plain(t64(lengths), t64(xa), t64(xb), g)
+    else:
+        w = t64(lengths)
+        za, zb = (torch.einsum("bij,bnj->bni", w, t64(x)) for x in (xa, xb))
+        dza, dzb = GK.gram_vjp_points_pair_plain(torch.ones(batch, d, dtype=torch.float64),
+                                                 za, zb, g)
+        ours = (dza @ w, dzb @ w)
+    for o, r in zip(ours, refs):
+        r = np.asarray(r)
+        assert o.shape == r.shape
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-12 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("want_a,want_b", [(True, False), (False, True)])
+def test_points_pair_plain_one_side(want_a, want_b):
+    """A side not asked for is None; the other equals the pair's."""
+    rng = np.random.default_rng(36)
+    l, xa, xb = t64(rng.uniform(0.5, 2.0, size=(2, 3))), t64(rng.normal(size=(2, 5, 3))), \
+        t64(rng.normal(size=(2, 4, 3)))
+    g = t64(rng.normal(size=(2, 5, 4)))
+    both = GK.gram_vjp_points_pair_plain(l, xa, xb, g)
+    one = GK.gram_vjp_points_pair_plain(l, xa, xb, g, want_a, want_b)
+    for o, b, want in zip(one, both, (want_a, want_b)):
+        assert (o is None) != want and (o is None or torch.equal(o, b))
 
 
 def test_points_vjp_plain_matches_autograd():

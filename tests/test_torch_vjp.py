@@ -199,12 +199,17 @@ def test_backward_on_gpu_launches_the_vjp_kernels(cuda_device):
 # (B, Na, Nb, D, xb broadcast, cotangent read transposed)
 POINTS_SHAPES = [(1, 200, 200, 2, False, False), (7, 200, 200, 2, True, True),
                  (3, 301, 203, 4, True, True), (2, 33, 1, 3, False, False),
-                 (2, 9, 700, 1, True, False)]
+                 (2, 9, 700, 1, True, False), (1, 1024, 1024, 2, False, False),
+                 (1, 160, 160, 2, False, True)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sides", [(True, True), (True, False), (False, True)])
 @pytest.mark.parametrize("batch,na,nb,d,bcast,trans", POINTS_SHAPES)
-def test_points_kernel_matches_plain_on_gpu(cuda_device, batch, na, nb, d, bcast, trans):
+def test_points_kernel_matches_plain_on_gpu(cuda_device, batch, na, nb, d, bcast, trans,
+                                            sides):
+    """The pair call, both sides or either alone, against the pair's plain
+    counterpart; two calls bit for bit."""
     rng = np.random.default_rng(26)
     dev, dt = cuda_device, torch.float64
     l = torch.tensor(rng.uniform(0.5, 3.0, size=(batch, d)), dtype=dt, device=dev)
@@ -213,11 +218,15 @@ def test_points_kernel_matches_plain_on_gpu(cuda_device, batch, na, nb, d, bcast
                       device=dev).expand(batch, nb, d)
     g = (torch.tensor(rng.normal(size=(batch, nb, na)), dtype=dt, device=dev).transpose(1, 2)
          if trans else torch.tensor(rng.normal(size=(batch, na, nb)), dtype=dt, device=dev))
-    out = GK.gram_vjp_points_cuda(l, xa, xb, g)
-    again = GK.gram_vjp_points_cuda(l, xa, xb, g)
+    out = GK.gram_vjp_points_cuda(l, xa, xb, g, *sides)
+    again = GK.gram_vjp_points_cuda(l, xa, xb, g, *sides)
+    ref = GK.gram_vjp_points_pair_plain(l, xa, xb, g, *sides)
     torch.cuda.synchronize()
-    assert torch.equal(out, again)
-    assert _rel(out, GK.gram_vjp_points_plain(l, xa, xb, g)) <= 1e-10
+    for o, a, r, want in zip(out, again, ref, sides):
+        assert (o is not None) == want and (r is not None) == want
+        if want:
+            assert torch.equal(o, a)
+            assert _rel(o, r) <= 1e-10
 
 
 # -- bounds and shapes of the VJP kernels (gple_tpu_torch.ops.kernel_bench) -------------
@@ -225,13 +234,19 @@ def test_points_kernel_matches_plain_on_gpu(cuda_device, batch, na, nb, d, bcast
 def test_vjp_bounds_at_ladder_shapes():
     """Bytes bound the dense Gram cotangent (8 bytes against 24 FP64
     instructions a pair), FP64 instructions the rank-C predict weight; the
-    points cotangent (3D + 17 a pair) is bound by its cotangent's bytes too."""
+    points cotangent's pair call (one distance and one exp a pair, D
+    multiply-adds for each side: 4D + 17, 25 against its cotangent's 8
+    bytes) by its bytes."""
     from gple_tpu_torch.ops import kernel_bench as KB
 
-    assert KB.points_vjp_dp_per_pair(2) == 3 * 2 + 2 + KB.EXP_F64_DP_INSTR == 23
-    ms, by = KB.gram_vjp_points_bound(1, 200, 200, 2)
-    assert by == "bytes" and ms == pytest.approx((200 * 200 + 400 * 2 + 2 + 200 * 2) * 8
-                                                 / 3.35e9)
+    assert KB.points_vjp_dp_per_pair(2) == 4 * 2 + 2 + KB.EXP_F64_DP_INSTR == 25
+    for n in (200, 160, 1024):
+        ms, by = KB.gram_vjp_points_bound(1, n, n, 2)
+        assert by == "bytes" and ms == pytest.approx((n * n + 2 * 2 * n * 2 + 2) * 8 / 3.35e9)
+        assert n * n * 25 / 17e9 < ms
+    ms, by = KB.gram_vjp_points_bound(1, 200, 200, 2, itemsize=4)
+    assert by == "bytes" and ms == pytest.approx((200 * 200 + 2 * 400 * 2 + 2) * 4 / 3.35e9)
+    assert [c.na for c in KB.POINTS_VJP_CASES] == [200, 160, 1024]
 
     assert KB.vjp_dp_per_pair(2) == 4 * 2 + 1 + KB.EXP_F64_DP_INSTR == 24
     assert KB.vjp_dp_per_pair(2, 2) == 26
@@ -252,11 +267,18 @@ def test_kernel_bench_variants_edit_the_source():
     from gple_tpu_torch.ops import kernel_bench as KB
 
     source = (_build.CSRC / "rbf_vjp.cu").read_text()
-    assert set(KB.VARIANTS) == {"no exp", "no cotangent reads", "no ticket"}
+    length_variants = {"no exp", "no cotangent reads", "no ticket"}
+    assert set(KB.VARIANTS) == length_variants | {
+        "points: no exp", "points: no cotangent reads", "points: no division",
+        "points: staging only", "points: launch only"}
     for name, edits in KB.VARIANTS.items():
         text = KB.variant_source(name)
         assert all(find not in text and replace in text for find, replace in edits)
-        assert len(text) < len(source)
+        if name in length_variants:
+            assert len(text) < len(source)
+            assert KB.VARIANT_KERNELS[name] == KB.LENGTH_VJPS
+        else:
+            assert text != source and KB.VARIANT_KERNELS[name] == ("rbf_gram_vjp_points",)
 
 
 def test_launched_vjp_shapes_become_cases():
@@ -331,16 +353,69 @@ def test_vjp_launchers_pass_strides_and_scratch(monkeypatch):
     assert args[6] == scratch.data_ptr() and args[7] == GK._TICKETS[l.device].data_ptr()
     assert args[8:14] == (3, 70, 40, 2, 2, plan.rows)
     assert args[14:28] == (*xa.stride(), 0, 2, 1, *l.stride(), *gp.stride(), *alpha.stride())
-    out = GK.gram_vjp_points_cuda(l, xa, xb, g)
+    d_xa, d_xb = GK.gram_vjp_points_cuda(l, xa, xb, g, True, True)
     prefix, args = calls[2]
-    assert prefix == "rbf_gram_vjp_points" and out.shape == (3, 70, 2)
-    assert args[5:9] == (3, 70, 40, 2)
-    assert args[9:20] == (*xa.stride(), 0, 2, 1, *l.stride(), *g.stride())
+    plan = GK.points_plan(3, 70, 40, True, True, 132)
+    assert prefix == "rbf_gram_vjp_points"
+    assert d_xa.shape == (3, 70, 2) and d_xb.shape == (3, 40, 2)
+    assert args[:6] == (xa.data_ptr(), xb.data_ptr(), l.data_ptr(), g.data_ptr(),
+                        d_xa.data_ptr(), d_xb.data_ptr())
+    assert args[6:11] == (3, 70, 40, 2, plan.own)
+    assert args[11:22] == (*xa.stride(), 0, 2, 1, *l.stride(), *g.stride())
+    # one side asked: a null pointer for the other, the same count
+    d_xa, d_xb = GK.gram_vjp_points_cuda(l, xa, xb, g, False, True)
+    prefix, args = calls[3]
+    assert d_xa is None and args[4] is None and args[5] == d_xb.data_ptr()
+    assert args[10] == GK.points_plan(3, 70, 40, False, True, 132).own
     assert GK.LAUNCHES["rbf_gram_vjp"] == GK.LAUNCHES["rbf_predict_vjp"] == 1
-    assert GK.LAUNCHES["rbf_gram_vjp_points"] == 1
-    assert GK.LAUNCHES_BY_SHAPE[("rbf_gram_vjp_points", (3, 70, 40, 2, "float64"))] == 1
+    assert GK.LAUNCHES["rbf_gram_vjp_points"] == 2
+    assert GK.LAUNCHES_BY_SHAPE[("rbf_gram_vjp_points", (3, 70, 40, 2, "float64"))] == 2
+    assert GK.POINTS_VJP_READS == {((2800, 1, 70), "ab"): 1, ((2800, 1, 70), "b"): 1}
     GK.reset_launches()
     GK._TICKETS.pop(l.device)
+
+
+def test_gram_backward_makes_one_points_call(monkeypatch):
+    """A Gram's backward with both point sets requiring grad is one
+    ``rbf_gram_vjp_points`` call (a stand-in for the C launch, on CPU
+    tensors routed as if on the card) with both output pointers; with one
+    set, one call with a null pointer for the other."""
+    import contextlib
+    import types
+
+    from gple_tpu_torch.ops import _build
+
+    calls = []
+
+    def launcher(prefix, dtype):
+        def fn(*args):
+            assert len(args) == len(_build._SIGNATURES[prefix])
+            calls.append((prefix, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(GK, "_check_cuda", lambda name, *t: None)
+    monkeypatch.setattr(GK, "_launcher", launcher)
+    monkeypatch.setattr(GK, "_route", lambda name, t: True)
+    monkeypatch.setattr(GK, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    GK.reset_launches()
+    rng = np.random.default_rng(27)
+    l = t64(rng.uniform(0.3, 2.0, size=(2, 2)))
+    for want_a, want_b in ((True, True), (False, True), (True, False)):
+        xa, xb = t64(cloud(rng, 2, 9), want_a), t64(cloud(rng, 2, 5), want_b)
+        calls.clear()
+        GK.RBFGram.apply(l, xa, xb).backward(t64(rng.normal(size=(2, 9, 5))))
+        points = [args for prefix, args in calls if prefix == "rbf_gram_vjp_points"]
+        assert [prefix for prefix, _ in calls] == ["rbf_gram", "rbf_gram_vjp_points"]
+        (args,) = points
+        assert (args[4] is not None, args[5] is not None) == (want_a, want_b)
+        assert args[6:10] == (2, 9, 5, 2)
+        assert (xa.grad is not None, xb.grad is not None) == (want_a, want_b)
+    assert GK.LAUNCHES["rbf_gram_vjp_points"] == 3 and GK.LAUNCHES["rbf_gram_vjp"] == 0
+    GK.reset_launches()
 
 
 # -- the length-cotangent kernel's launch plan (gram_kernels.vjp_plan) ------------------
@@ -400,6 +475,81 @@ def test_vjp_plan_refuses_grids_outside_cudas_limits():
         GK.vjp_plan(1, GK.VJP_MAX_ROWS * 65535 + 1, 2, 132)
     with pytest.raises(ValueError, match="grid"):
         GK.vjp_plan(65536, 8, 8, 132)
+
+
+# -- the points cotangent's launch plan (gram_kernels.points_plan) ----------------------
+
+#: sides asked: both, xa's alone, xb's alone
+POINT_SIDES = [(True, True), (True, False), (False, True)]
+
+
+def _points_pairs_hit(plan, na, nb, want_a, want_b):
+    """Pairs (i, j) each side's blocks take, as the kernel maps them: block x
+    < tiles_a takes rows [x * own, min((x + 1) * own, Na)) of G, a later one
+    columns; each own point's threads p = 0 .. per - 1 take the summed
+    axis's points p, p + per, ... of every POINTS_CHUNK chunk."""
+    per = GK.POINTS_THREADS // plan.own
+    hits = {}
+    for side, n_own, n_sum, tiles in (("a", na, nb, plan.tiles_a), ("b", nb, na, plan.tiles_b)):
+        ks = np.concatenate([k0 + np.arange(p, min(GK.POINTS_CHUNK, n_sum - k0), per)
+                             for k0 in range(0, n_sum, GK.POINTS_CHUNK) for p in range(per)])
+        count = np.zeros((n_own, n_sum), dtype=np.int64)
+        for x in range(tiles):
+            lo, hi = x * plan.own, min((x + 1) * plan.own, n_own)
+            assert hi > lo
+            np.add.at(count, (slice(lo, hi), ks), 1)
+        hits[side] = count
+    return hits
+
+
+@pytest.mark.parametrize("want_a,want_b", POINT_SIDES)
+@pytest.mark.parametrize("batch,na,nb", [s for s in PLAN_SHAPES if s[1] < 10**5])
+@pytest.mark.parametrize("sms", [132, 16])
+def test_points_plan_covers_every_pair_once(batch, na, nb, sms, want_a, want_b):
+    """Every (i, j) pair of each side asked is taken exactly once, a side not
+    asked has no block, and no block is empty."""
+    plan = GK.points_plan(batch, na, nb, want_a, want_b, sms)
+    assert plan.grid == (plan.tiles_a + plan.tiles_b, batch)
+    hits = _points_pairs_hit(plan, na, nb, want_a, want_b)
+    for side, want in (("a", want_a), ("b", want_b)):
+        assert np.all(hits[side] == (1 if want else 0))
+
+
+@pytest.mark.parametrize("want_a,want_b", POINT_SIDES)
+@pytest.mark.parametrize("batch,na,nb", PLAN_SHAPES)
+def test_points_plan_grid_and_shared_memory(batch, na, nb, want_a, want_b):
+    """The grid stays inside CUDA's limits (x < 2^31, y <= 65535), own points
+    a block are a power of two the kernel takes (at least one 32-byte sector
+    of doubles for xb's side), the dynamic shared memory fits the 48 KB a
+    block has without opting in, for D = 1-4, and validation's B = 1 shapes
+    put every SM to work."""
+    plan = GK.points_plan(batch, na, nb, want_a, want_b, 132)
+    gx, gy = plan.grid
+    assert 1 <= gx < 2**31 and gy == batch <= 65535
+    assert plan.own in (4, 8, 16) and plan.own <= GK.POINTS_MAX_OWN
+    for d in range(1, GK.MAX_DIM + 1):
+        smem = 8 * (plan.own * (GK.POINTS_CHUNK + 1) + d * GK.POINTS_CHUNK
+                    + GK.POINTS_THREADS // 32 * d)
+        assert smem <= 48 * 1024
+    if (batch, na, nb) == (1, 200, 200) and want_a and want_b:
+        assert plan == GK.PointsPlan(4, 50, 50, 1)
+
+
+def test_points_plan_refuses_grids_outside_cudas_limits():
+    with pytest.raises(ValueError, match="grid"):
+        GK.points_plan(65536, 8, 8, True, True, 132)
+    with pytest.raises(ValueError, match="grid"):
+        GK.points_plan(1, 8, 8, False, False, 132)
+
+
+@pytest.mark.parametrize("strides,read_a,read_b", [
+    ((2800, 70, 1), "along the summed axis, contiguous", "along the own points, runs of own"),
+    ((2800, 1, 40), "along the own points, runs of own", "along the summed axis, contiguous"),
+    ((0, 71, 1), "along the summed axis, contiguous", "along the own points, runs of own"),
+    ((2800, 140, 2), "strided", "strided")])
+def test_points_vjp_read_names_the_branch(strides, read_a, read_b):
+    assert GK.points_vjp_read(strides, "a") == read_a
+    assert GK.points_vjp_read(strides, "b") == read_b
 
 
 def test_gram_vjp_read_picks_the_kernels_branch():
