@@ -177,6 +177,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gple_tpu_torch.utils import spans
+
 MODEL, MASS, DT = "SAC", 2000.0, 1.0
 N_AGREE = 256
 N_SLICE = 1024
@@ -520,15 +522,16 @@ def slice_phase():
                                         driver.gp_dist_all_nocut, "none", 0, 2.0, True)
         GR.copy_((state, small), ((d, e, g), sm))
 
-    graph = GR.Graph(tick_fn, (state, params, small))
+    graph = GR.Graph(tick_fn, (state, params, small), "tick")
     tick_s = []
     smalls = []
-    for _ in range(TICKS):
-        t0 = time.perf_counter()
-        graph()
-        torch.cuda.synchronize()
-        tick_s.append(time.perf_counter() - t0)
-        smalls.append(small.tolist())
+    with spans.collect() as totals:
+        for _ in range(TICKS):
+            t0 = time.perf_counter()
+            graph()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+            smalls.append(small.tolist())
     launches = dict(GK.LAUNCHES)
     density, extra, gps = state
     pop1 = gps.population().item()
@@ -536,7 +539,7 @@ def slice_phase():
     log(f"slice N={N_SLICE}: s/step {s_step!r} (mean of {TIMED_STEPS} after "
         f"{WARMUP_STEPS} warm-up, host clock around synchronize)")
     log(f"slice N={N_SLICE}: s/tick {sum(tick_s[1:]) / (len(tick_s) - 1)!r} graph replays "
-        f"(each: {tick_s!r}; the first captures, {graph.capture_s!r} s, pool "
+        f"(each: {tick_s!r}; the first captures, {totals.seconds('capture')!r} s, pool "
         f"{graph.pool_bytes / 2**20:.1f} MiB)")
     log(f"slice N={N_SLICE}: population after steps {pop_steps!r}, after ticks {pop1!r}; "
         f"purity {gps.purity().item()!r}; is_very_small {smalls[-1]}")
@@ -590,12 +593,35 @@ def _check_path_launches(phase: str, launches: dict, names=FORWARD):
             raise AssertionError(f"{phase}: kernel {name} was not launched")
 
 
-def _check_graphs(phase: str) -> dict:
-    """The CUDA graphs captured and replayed since the counters' reset: the
-    ticks of a phase that runs the driver went through the tick graph."""
-    from gple_tpu_torch.ops import graphs as GR
+#: the initialization's spans, the children of a run's ``init``
+INIT_SPANS = ("mc_select", "extra", "optimize", "refit")
 
-    counts = dict(GR.COUNTS)
+
+def _init_phases(drv) -> dict:
+    """Wall seconds of the driver's initialization phases (its spans)."""
+    return {name: drv.totals.seconds(name) for name in INIT_SPANS}
+
+
+def _graphs(totals) -> dict:
+    """The CUDA graphs captured and replayed in a collection of spans, and
+    the walls of the captures and of the replays' launches."""
+    return dict(captures=totals.calls("capture"), replays=totals.calls("launch"),
+                capture_s=totals.seconds("capture"), launch_s=totals.seconds("launch"))
+
+
+def _span_summary(timeline) -> dict:
+    """A run's timeline (``GPLEDriver.spans``): its spans' count and their
+    seconds by name less their children's."""
+    if timeline is None:
+        return {}
+    return dict(records=len(timeline.records), self_s=timeline.self_seconds())
+
+
+def _check_graphs(phase: str, totals) -> dict:
+    """The CUDA graphs captured and replayed in ``totals`` (a driver's, or a
+    collection's): the ticks of a phase that runs the driver went through
+    the tick graph."""
+    counts = _graphs(totals)
     log(f"{phase} graphs: {json.dumps(counts)}")
     if not counts["replays"] > 0:
         raise AssertionError(f"{phase}: no CUDA graph was replayed")
@@ -607,7 +633,6 @@ def trajectory_phase():
     from gple_tpu_torch.driver import GPLEDriver
     from gple_tpu_torch.entry import trajectory_config
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
 
     cfg = trajectory_config(TRAJ_N)
     calls = {}
@@ -616,7 +641,6 @@ def trajectory_phase():
         _instrument(drv, calls)
         torch.cuda.synchronize()
         GK.reset_launches()
-        GR.reset_counts()
         t0 = time.perf_counter()
         hist = drv.run(max_ticks=TRAJ_TICKS)
         torch.cuda.synchronize()
@@ -638,7 +662,7 @@ def trajectory_phase():
         for k, v in _sum_launches(calls[group]).items():
             rest[k] -= v
     per["tick"] = {k: v / TRAJ_TICKS for k, v in rest.items() if v}
-    walls = dict(run_s=wall, init_s=init_s, init_marks=dict(drv.init_marks),
+    walls = dict(run_s=wall, init_s=init_s, init_phases=_init_phases(drv),
                  s_per_tick=tick_s, reopts=len(reopt_s),
                  mean_reopt_s=sum(reopt_s) / len(reopt_s), reopt_s=reopt_s,
                  outputs=len(output_s), mean_output_s=sum(output_s) / len(output_s),
@@ -671,7 +695,7 @@ def trajectory_phase():
     if missing:
         raise AssertionError(f"trajectory: output files missing or empty: {missing}")
     _check_path_launches("trajectory", launches)
-    _check_graphs("trajectory")
+    _check_graphs("trajectory", drv.totals)
     return launches, by_shape, per, walls
 
 
@@ -683,7 +707,6 @@ def crossing_phase():
     from gple_tpu_torch.entry import crossing_config, crossing_dvr_config
     from gple_tpu_torch.oracles import DVRSolver
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
 
     with open(DVR_TABLE) as f:
         table = json.load(f)
@@ -698,7 +721,6 @@ def crossing_phase():
     drv = GPLEDriver(crossing_config(), device="cuda")
     torch.cuda.synchronize()
     GK.reset_launches()
-    GR.reset_counts()
     t0 = time.perf_counter()
     hist = drv.run(max_ticks=CROSS_TICKS)
     torch.cuda.synchronize()
@@ -713,8 +735,8 @@ def crossing_phase():
                   final_population_mci=hist[-1].population_mci.tolist(),
                   max_population_deviation=pop_dev, stats=drv.stats,
                   active=drv.density.active.tolist(), phase_times=drv.phase_times,
-                  chains=_chains_info(drv._chains),
-                  init_marks=dict(drv.init_marks))
+                  chains=_chains_info(drv._chains), graphs=_graphs(drv.totals),
+                  init_phases=_init_phases(drv))
     log("crossing: " + json.dumps(result))
     log(f"crossing launches: {json.dumps(launches)}")
     if not hist[-1].population_mci[1] > 0.25:
@@ -728,7 +750,7 @@ def crossing_phase():
     if not rmse < 0.055:
         raise AssertionError(f"crossing: RMSE vs DVR {rmse} >= 0.055")
     _check_path_launches("crossing", launches)
-    _check_graphs("crossing")
+    _check_graphs("crossing", drv.totals)
     return launches, by_shape, result
 
 
@@ -866,14 +888,14 @@ def device_trace(run, untraced_s: float, device: str = "cuda"):
     from gple_tpu_torch.ops import gram_kernels as GK
 
     activities = [ProfilerActivity.CUDA if device == "cuda" else ProfilerActivity.CPU]
-    zoom0, launch0 = dict(O.ZOOM_COUNTS), dict(GK.LAUNCHES)
+    launch0 = dict(GK.LAUNCHES)
     _sync(device)
-    with profile(activities=activities) as prof:
+    with spans.collect() as totals, profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = run()
         _sync(device)
         traced_s = time.perf_counter() - t0
-    zoom = _zoom_summary({k: O.ZOOM_COUNTS[k] - zoom0[k] for k in zoom0})
+    zoom = _zoom_summary({k: totals.count("zoom." + k) for k in O.ZOOM_COUNTERS})
     calls = {k: GK.LAUNCHES[k] - launch0[k] for k in GK.LAUNCHES}
     t0 = time.perf_counter()
     events = prof.profiler.kineto_results.events()
@@ -982,11 +1004,12 @@ def zoom_agreement_phase():
             def loss(z):
                 return O._diag_loss(O._sigmoid_to_bounds(z, dlb, dub), data)
 
-            counts = dict(O.ZOOM_COUNTS)
-            t0 = time.perf_counter()
-            z = O._lbfgs_zoom(loss, z0, LADDER_STEPS)
-            outs[dev] = (z.detach().cpu(), time.perf_counter() - t0,
-                         {k: O.ZOOM_COUNTS[k] - counts[k] for k in counts})
+            with spans.collect() as totals:
+                t0 = time.perf_counter()
+                z = O._lbfgs_zoom(loss, z0, LADDER_STEPS)
+                z_host = z.detach().cpu()
+            outs[dev] = (z_host, time.perf_counter() - t0,
+                         {k: totals.count("zoom." + k) for k in O.ZOOM_COUNTERS})
     err = _rel(outs["cuda"][0].numpy(), outs["cpu"][0].numpy())
     moved = float((outs["cuda"][0] - z0.cpu()).abs().max())
     log(f"zoom agreement N={LADDER_AGREE_N}: final z card vs CPU (relative) {err!r}; "
@@ -1116,7 +1139,7 @@ def parity_phase():
     pop = OBS.population_each_surface(drv.density).cpu().numpy()
     rpop = OBS.population_each_surface(resumed.density).cpu().numpy()
     walls = _walls(calls, wall, RP_TICKS)
-    walls.update(init_marks=dict(drv.init_marks), phase_times=drv.phase_times,
+    walls.update(init_phases=_init_phases(drv), phase_times=drv.phase_times,
                  stages=[dict(tag=st["tag"], seconds=st["seconds"], check=st["check"].tolist(),
                               zoom=_zoom_summary(st["zoom"]))
                          for st in drv.optimizer.stages],
@@ -1530,7 +1553,7 @@ def booster_phase():
     counters = {k: drv.stats.get(k, 0) for k in ("coh_rescales", "pop_rescales",
                                                  "coh_len_backoffs", "coh_boost_ejected")}
     result = dict(n=BOOST_N, k=cfg.coh_fit_extra, ticks=BOOST_TICKS, walls=walls,
-                  init_marks=dict(drv.init_marks), phase_times=drv.phase_times,
+                  init_phases=_init_phases(drv), phase_times=drv.phase_times,
                   chains=_chains_info(drv._chains),
                   counters=counters, stats=drv.stats, coh_div_eff=drv._coh_div_eff,
                   coherence_points_at_outputs=coh_points, launches=launches)
@@ -1884,7 +1907,6 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
     from gple_tpu_torch import driver as TD
     from gple_tpu_torch.entry import trajectory_config
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
 
     cfg = dataclasses.replace(trajectory_config(n), init_cache=True)
     before = os.environ.get(TD.INIT_CACHE_ENV)
@@ -1897,7 +1919,6 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
             logs = []
             drv._log = logs.append
             GK.reset_launches()
-            GR.reset_counts()
             t0 = time.perf_counter()
             hist = drv.run(max_ticks=PROFILE_TICKS)
             wall = time.perf_counter() - t0
@@ -1906,7 +1927,8 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
             breakdown = trace_breakdown(drv.trace_path)
             breakdown.update(run_s=wall, parse_s=time.perf_counter() - t1,
                              trace_mb=os.path.getsize(drv.trace_path) / 1e6,
-                             phase_times=drv.phase_times, launches=launches)
+                             phase_times=drv.phase_times, launches=launches,
+                             spans=_span_summary(drv.spans))
         finally:
             if before is None:
                 os.environ.pop(TD.INIT_CACHE_ENV, None)
@@ -1927,7 +1949,7 @@ def profile_phase(n: int = TRAJ_N, device: str = "cuda"):
         if missing:
             raise AssertionError(f"profile: the trace names no device kernel of {missing}")
         _check_path_launches("profile", launches)
-        _check_graphs("profile")
+        _check_graphs("profile", drv.totals)
     return launches, by_shape, breakdown
 
 
@@ -1981,7 +2003,8 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
     drv.initialize()
     S, tick, _ = drv._programs(drv._host_active())
     drv._load(S)
-    tick()                                   # warm-up and capture, then one replay
+    with spans.collect() as captured:
+        tick()                               # warm-up and capture, then one replay
 
     def ticks(fn):
         drv._load(S)
@@ -2015,7 +2038,7 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
             window = trace_breakdown(path)
             window["host_launches"] = _host_launches(path)
     result = dict(n=n, ticks=GRAPH_TICKS, s_per_tick=s_tick, bitwise=equal, max_rel_err=err,
-                  capture_s=tick.capture_s, pool_mib=tick.pool_bytes / 2**20,
+                  capture_s=captured.seconds("capture"), pool_mib=tick.pool_bytes / 2**20,
                   launches_per_replay={f"{k[0]} {k[1]}": v for k, v in tick.launches.items()},
                   host_launches_one_tick=one,
                   graphed_window={k: window[k] for k in ("window_ms", "device_busy_ms",
@@ -2032,9 +2055,9 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
 
 
 def _chains_info(chains) -> dict:
-    """A :class:`mc.Chains`'s programs, graphs, capture wall and pool."""
+    """A :class:`mc.Chains`'s programs, graphs and pool."""
     return dict(programs=len(chains.programs), graphs=len(chains.graphs()),
-                capture_s=chains.capture_s, pool_mib=chains.pool_bytes / 2**20)
+                pool_mib=chains.pool_bytes / 2**20)
 
 
 def walk_phase(n: int = WALK_N, device: str = "cuda"):
@@ -2058,7 +2081,6 @@ def walk_phase(n: int = WALK_N, device: str = "cuda"):
     from gple_tpu_torch import driver as TD
     from gple_tpu_torch.entry import parity_config
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
     from gple_tpu_torch.sampler import mc
     from gple_tpu_torch.sampler.keys import RandomKeys
 
@@ -2093,12 +2115,13 @@ def walk_phase(n: int = WALK_N, device: str = "cuda"):
             return p, r, (params.num_steps, params.displacement)
 
         walls, outs, eager_launches = {}, {}, {}
-        GR.reset_counts()
+        totals = spans.Totals()
         for route in ("eager", "graph", "graph", "eager"):
             _sync(device)
             GK.reset_launches()
             t0 = time.perf_counter()
-            outs.setdefault(route, []).append(once(route))
+            with spans.collect(totals):
+                outs.setdefault(route, []).append(once(route))
             _sync(device)
             walls.setdefault(route, []).append(time.perf_counter() - t0)
             # only the graphed walks count for the path
@@ -2107,7 +2130,7 @@ def walk_phase(n: int = WALK_N, device: str = "cuda"):
                                    ((eager_launches, GK.LAUNCHES),)):
                 for k, v in counted.items():
                     total[k] = total.get(k, 0) + v
-        counts = dict(GR.COUNTS)
+        counts = _graphs(totals)
         bitwise = all(a[2] == b[2] and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
                       for a in outs["graph"] + outs["eager"][1:] for b in outs["eager"][:1])
         host = {}
@@ -2159,7 +2182,6 @@ def band_phase(rows=None, device: str = "cuda"):
     from gple_tpu_torch.entry import PARITY_ROWS, dvr_config_for, parity_config, parity_rmse
     from gple_tpu_torch.oracles import DVRSolver
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
 
     with open(PARITY_TABLE) as f:
         table = json.load(f)
@@ -2182,7 +2204,6 @@ def band_phase(rows=None, device: str = "cuda"):
         drv = GPLEDriver(cfg, device=device)
         _sync(device)
         GK.reset_launches()
-        GR.reset_counts()
         t0 = time.perf_counter()
         hist = drv.run()
         _sync(device)
@@ -2194,10 +2215,10 @@ def band_phase(rows=None, device: str = "cuda"):
         rmse = parity_rmse(hist, dvrs[model].times, dvrs[model].populations)
         result = dict(model=model, n=n, run_s=wall, ticks=int(round(hist[-1].time / cfg.dt)),
                       records=len(hist), limit_mci=limit, **rmse,
-                      phase_times=drv.phase_times, init_marks=dict(drv.init_marks),
+                      phase_times=drv.phase_times, init_phases=_init_phases(drv),
                       stats=drv.stats, mc_params=[(p.num_steps, p.displacement)
                                                   for p in drv.mc_params],
-                      graphs=dict(GR.COUNTS), chains=_chains_info(drv._chains),
+                      graphs=_graphs(drv.totals), chains=_chains_info(drv._chains),
                       launches=dict(GK.LAUNCHES),
                       final_population_mci=hist[-1].population_mci.tolist(),
                       final_x=hist[-1].x_average)
@@ -2265,19 +2286,17 @@ def fused_phase(n: int = TRAJ_N, ticks: int = FUSED_TICKS,
     from gple_tpu_torch.driver import GPLEDriver
     from gple_tpu_torch.entry import crossing_config, trajectory_config
     from gple_tpu_torch.ops import gram_kernels as GK
-    from gple_tpu_torch.ops import graphs as GR
 
     def run(cfg, n_ticks):
         drv = GPLEDriver(cfg, device=device)
         GK.reset_launches()
-        GR.reset_counts()
         _sync(device)
         t0 = time.perf_counter()
         hist = drv.run(max_ticks=n_ticks)
         _sync(device)
         wall = time.perf_counter() - t0
         info = dict(run_s=wall, s_per_tick=(wall - drv.phase_times["init"]) / n_ticks,
-                    phase_times=drv.phase_times, stats=drv.stats, graphs=dict(GR.COUNTS),
+                    phase_times=drv.phase_times, stats=drv.stats, graphs=_graphs(drv.totals),
                     launches=dict(GK.LAUNCHES))
         return (drv, hist), info, dict(GK.LAUNCHES_BY_SHAPE)
 

@@ -32,7 +32,8 @@ the post-initialization state keyed by every other field and restores it on
 a repeat run (:meth:`GPLEDriver._init_cache_path`).  Where the JAX package's
 booster diverges, so does this one: the decisions are the same.
 ``GPLEDriver(profile_dir=...)`` traces a run with ``torch.profiler``, as the
-JAX package's traces it with ``jax.profiler``.
+JAX package's traces it with ``jax.profiler``, with the program's spans in
+the trace.
 
 The tick paths are the JAX package's one-dispatch programs, run on the
 card as replays of captured CUDA graphs (:mod:`gple_tpu_torch.ops.graphs`)
@@ -55,17 +56,30 @@ output and checkpoint (``run``'s ``checkpoint_path`` / ``checkpoint_every``
 :mod:`gple_tpu_torch.io.checkpoint`).  The draws a graph needs (the extra
 clouds' jitter at a scheduled reopt) are made before its replay from keys
 split in the host loop's order, so both paths consume one random stream.
+
+Spans (:mod:`gple_tpu_torch.utils.spans`).  A run is the root span ``run``;
+under it ``init`` (``mc_select``, ``extra``, ``optimize`` and ``refit`` of
+:meth:`GPLEDriver.initialize`, or a checkpoint's ``restore``), ``fused``
+(attributes ``tick``, ``n``, ``ok``) and ``chunk``, ``step`` (``evolve``,
+``seed``, ``reopt``), ``reopt`` (``reselect``, ``tune``, ``fit``) and
+``output`` (``observe``, ``write``); every host read of device values, every
+synchronize and every copy of host data to the card is a ``wait`` span.  A
+fused segment on the card times its tick replays and its period-end replays
+with CUDA events, read after the segment's one pull, into the totals
+``dev.fused_tick`` and ``dev.fused_period_end``.  The run's spans add to
+``GPLEDriver.totals``; ``phase_times`` is a view of them (:data:`PHASE_SPANS`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import math
 import os
 import time
-from functools import partial
+from functools import partial, wraps
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -106,10 +120,8 @@ from gple_tpu_torch.storage import (
     predict_all,
     predict_element,
 )
-from gple_tpu_torch.utils import ri
+from gple_tpu_torch.utils import ri, spans
 from gple_tpu_torch.utils.constants import purity_factor
-
-_DIAG = list(DIAG_INDICES)
 
 
 # -- distribution functions ---------------------------------------------------------
@@ -507,7 +519,9 @@ def _grid_predictions(gps: GPStates, grid_pts):
 
 def _pull(*tensors):
     """Host numpy copies of float tensors, through one device-to-host copy."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    with spans.span("wait"):
+        flat = flat.cpu().numpy()
     out, at = [], 0
     for t in tensors:
         out.append(flat[at: at + t.numel()].reshape(tuple(t.shape)))
@@ -538,6 +552,37 @@ def _unported(cfg: GPLEConfig) -> List[str]:
     return [what for bad, what in checks if bad]
 
 
+def _collected(method):
+    """``method`` of the driver with its spans adding to the driver's
+    :attr:`GPLEDriver.totals`, also where it is called outside ``run``."""
+
+    @wraps(method)
+    def collected(self, *args, **kwargs):
+        with spans.collect(self.totals):
+            return method(self, *args, **kwargs)
+    return collected
+
+
+#: ``GPLEDriver.phase_times``: each key the seconds of the spans it names.
+#: "evolve" is the ticks' host walls up to their pull (a chunk of replays
+#: that ran clean, a step's replay), "seed" an activation's seeding walks,
+#: "optimize" the host reoptimizations ("opt_reselect" their cloud
+#: re-selection and rescales, "opt_tune" their parameters, "opt_fit" their
+#: refit and extra clouds), "fused" the segments that ran clean (ticks and
+#: scheduled reopts on the device) and "fused_abort" those rolled back;
+#: "capture", "launch" and "wait" (graph captures, graph replays, host
+#: waits) lie inside the others; "dev.fused_tick" and "dev.fused_period_end"
+#: are the card's seconds of the fused segments' replays (CUDA events)
+PHASE_SPANS = {
+    "init": ("init",), "seed": ("seed",), "evolve": ("evolve", "chunk"),
+    "optimize": ("reopt",), "output": ("output",), "opt_reselect": ("reselect",),
+    "opt_tune": ("tune",), "opt_fit": ("fit",), "fused": ("fused",),
+    "fused_abort": ("fused_abort",), "capture": ("capture",), "launch": ("launch",),
+    "wait": ("wait",), "dev.fused_tick": ("dev.fused_tick",),
+    "dev.fused_period_end": ("dev.fused_period_end",),
+}
+
+
 #: the init cache's directory (GPLEConfig.init_cache); the environment
 #: variable of this name overrides it
 INIT_CACHE_ENV = "GPLE_TORCH_CACHE_DIR"
@@ -552,7 +597,10 @@ class GPLEDriver:
     ``profile_dir``: trace every :meth:`run` with ``torch.profiler`` (CPU
     activity, and the card's where the driver runs on one) into a chrome
     trace in that directory (``trace_path`` after the run; the profiler
-    itself stays in ``profiler`` for ``key_averages()``)."""
+    itself stays in ``profiler`` for ``key_averages()``), inside
+    ``spans.timeline()``: the trace holds the program's spans as ranges,
+    and ``spans`` holds the run's timeline after it (as after any run inside
+    a timeline)."""
 
     def __init__(self, cfg: GPLEConfig, outdir: Optional[str] = None, verbose: bool = False,
                  device="cuda", rng=None, profile_dir: Optional[str] = None):
@@ -569,20 +617,15 @@ class GPLEDriver:
         self.rng = rng if rng is not None else RandomKeys(cfg.seed, self.device)
         self.mc_params = [mc.MCParameters() for _ in range(NUM_ELEMENTS)]
         self.history: List[TickRecord] = []
-        self._grid = (torch.tensor(cfg.phase_grids(), dtype=torch.float64, device=self.device)
-                      if outdir else None)
-        #: cumulative per-phase wall times; "optimize" is split into
-        #: opt_reselect (cloud re-selection + MC re-tuning), opt_tune (moment
-        #: parameters) and opt_fit (refit + extra-point regeneration); "fused"
-        #: is whole segments (ticks and scheduled reopts on the device),
-        #: "fused_abort" the segments rolled back on an event
-        self.phase_times = {
-            "init": 0.0, "seed": 0.0, "evolve": 0.0, "optimize": 0.0, "output": 0.0,
-            "opt_reselect": 0.0, "opt_tune": 0.0, "opt_fit": 0.0,
-            "fused": 0.0, "fused_abort": 0.0,
-        }
-        #: wall seconds of each initialization phase, in order
-        self.init_marks: List[tuple] = []
+        self._grid = None
+        if outdir:
+            with spans.span("wait"):
+                self._grid = torch.tensor(cfg.phase_grids(), dtype=torch.float64,
+                                          device=self.device)
+        #: what the spans and counters of every run add up to (cumulative)
+        self.totals = spans.Totals()
+        #: the last run's timeline, when it ran inside one
+        self.spans: Optional[spans.Timeline] = None
         #: event counters: activations, re-selections, and (once they fire)
         #: coh_rescales, pop_rescales, coh_len_backoffs, coh_boost_ejected,
         #: relabel_rescales, relabel_rejects, relabel_nascent
@@ -622,6 +665,13 @@ class GPLEDriver:
         #: the Metropolis chains' programs, kept for the run: a walk of the
         #: same distribution at the same shapes replays the graphs of the first
         self._chains = mc.Chains()
+
+    @property
+    def phase_times(self) -> dict:
+        """The runs' phase walls in seconds, a view of :attr:`totals`: every
+        key of :data:`PHASE_SPANS`, 0.0 for one that no span fed."""
+        return {key: sum(self.totals.seconds(n) for n in names)
+                for key, names in PHASE_SPANS.items()}
 
     def _init_cache_path(self) -> str:
         """Path of the cached initialization state (GPLEConfig.init_cache),
@@ -666,71 +716,73 @@ class GPLEDriver:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with spans.span("wait"):
+                torch.cuda.synchronize(self.device)
 
     # -- initialization (main.cpp:25-73) ------------------------------------------
+    @_collected
     @torch.inference_mode()
     def initialize(self):
-        marks = [("start", time.perf_counter())]
         cfg = self.cfg
         pops = cfg.initial_population
         active = np.array([pops[i] > 0 and pops[j] > 0 for (i, j) in ELEMENTS], dtype=bool)
 
         def f64(v):
-            return torch.tensor(np.asarray(v, dtype=np.float64), device=self.device)
+            with spans.span("wait"):
+                return torch.tensor(np.asarray(v, dtype=np.float64), device=self.device)
 
-        init_params = (f64(cfg.r0), f64(cfg.sigma_r0), f64(pops),
-                       f64(cfg.initial_phase_factor))
-        n = cfg.num_points
-        pts = f64(cfg.r0)[None, None, :].expand(NUM_ELEMENTS, n, 2)
-        rho = init_dist_all(init_params, pts)
-        # Metropolis selection of each active element (main.cpp:57)
-        new_pts, new_rho = [], []
-        for k in range(NUM_ELEMENTS):
-            if active[k]:
-                p, r, self.mc_params[k] = mc.element_monte_carlo(
-                    self._split(), INIT_DIST_ELEMS[k], init_params, pts[k],
-                    self.mc_params[k], tune=True, chains=self._chains)
-            else:
-                p, r = pts[k], rho[k]
-            new_pts.append(p)
-            new_rho.append(r)
-        active_t = torch.tensor(active, device=self.device)
-        density = Density(points=torch.stack(new_pts), rho=torch.stack(new_rho),
-                          active=active_t)
-        self._sync()
-        marks.append(("mc_select", time.perf_counter()))
-        # conserved targets (main.cpp:59-66)
-        energies = OBS.total_energy_each_surface(cfg.model, density, cfg.mass)
-        e_host, mc_pur, pop_sum = _pull(
-            energies, torch.sum(OBS.purity_each_element(density)),
-            torch.sum(density.rho[_DIAG][..., 0]))
-        weights = np.asarray(pops) ** 2
-        self.total_energy = float(np.sum(weights * e_host) / weights.sum())
-        self.purity = 1.0
-        self.purity_ratio = self.purity / (float(mc_pur) * purity_factor(cfg.dim))
-        #: conserved total-population numerator (GPLEConfig.pop_rescale)
-        self._pop_sum0 = float(pop_sum)
-        extra = self._make_extra(density, active, INIT_DIST_ELEMS, init_params)
-        self.extra = extra
-        self._sync()
-        marks.append(("extra", time.perf_counter()))
-        self.optimizer = Optimizer(
-            model=cfg.model, mass=cfg.mass, total_energy=self.total_energy,
-            purity=self.purity, sigma_r0=np.asarray(cfg.sigma_r0),
-            lbfgs_steps=cfg.opt_steps_initial, opt_mode=cfg.opt_mode,
-            corr_bounds=self._corr_bounds(), off_len_div=cfg.coh_len_div,
-            coh_fit_extra=self._coh_k, device=self.device)
-        self.opt_result = self.optimizer.optimize(density, extra, energies)
-        marks.append(("optimize", time.perf_counter()))
-        self.optimizer.lbfgs_steps = cfg.opt_steps_reopt
-        self.gps = self._refit(density)
-        self._record_fit_ref(self.purity)
-        self.density = density
-        marks.append(("refit", time.perf_counter()))
-        self.init_marks = [(name, t1 - t0)
-                           for (name, t1), (_, t0) in zip(marks[1:], marks[:-1])]
-        self._log("init phases: " + ", ".join(f"{n}={s:.1f}s" for n, s in self.init_marks))
+        with spans.span("mc_select") as select:
+            init_params = (f64(cfg.r0), f64(cfg.sigma_r0), f64(pops),
+                           f64(cfg.initial_phase_factor))
+            n = cfg.num_points
+            pts = f64(cfg.r0)[None, None, :].expand(NUM_ELEMENTS, n, 2)
+            rho = init_dist_all(init_params, pts)
+            # Metropolis selection of each active element (main.cpp:57)
+            new_pts, new_rho = [], []
+            for k in range(NUM_ELEMENTS):
+                if active[k]:
+                    p, r, self.mc_params[k] = mc.element_monte_carlo(
+                        self._split(), INIT_DIST_ELEMS[k], init_params, pts[k],
+                        self.mc_params[k], tune=True, chains=self._chains)
+                else:
+                    p, r = pts[k], rho[k]
+                new_pts.append(p)
+                new_rho.append(r)
+            with spans.span("wait"):
+                active_t = torch.tensor(active, device=self.device)
+            density = Density(points=torch.stack(new_pts), rho=torch.stack(new_rho),
+                              active=active_t)
+            self._sync()
+        with spans.span("extra") as make_extra:
+            # conserved targets (main.cpp:59-66)
+            energies = OBS.total_energy_each_surface(cfg.model, density, cfg.mass)
+            e_host, mc_pur, pop_sum = _pull(
+                energies, torch.sum(OBS.purity_each_element(density)),
+                torch.sum(diag_rows(density.rho)[..., 0]))
+            weights = np.asarray(pops) ** 2
+            self.total_energy = float(np.sum(weights * e_host) / weights.sum())
+            self.purity = 1.0
+            self.purity_ratio = self.purity / (float(mc_pur) * purity_factor(cfg.dim))
+            #: conserved total-population numerator (GPLEConfig.pop_rescale)
+            self._pop_sum0 = float(pop_sum)
+            extra = self._make_extra(density, active, INIT_DIST_ELEMS, init_params)
+            self.extra = extra
+            self._sync()
+        with spans.span("optimize") as optimize:
+            self.optimizer = Optimizer(
+                model=cfg.model, mass=cfg.mass, total_energy=self.total_energy,
+                purity=self.purity, sigma_r0=np.asarray(cfg.sigma_r0),
+                lbfgs_steps=cfg.opt_steps_initial, opt_mode=cfg.opt_mode,
+                corr_bounds=self._corr_bounds(), off_len_div=cfg.coh_len_div,
+                coh_fit_extra=self._coh_k, device=self.device)
+            self.opt_result = self.optimizer.optimize(density, extra, energies)
+        with spans.span("refit") as refit:
+            self.optimizer.lbfgs_steps = cfg.opt_steps_reopt
+            self.gps = self._refit(density)
+            self._record_fit_ref(self.purity)
+            self.density = density
+        self._log("init phases: " + ", ".join(
+            f"{s.name}={s.seconds:.1f}s" for s in (select, make_extra, optimize, refit)))
         return density
 
     def _make_extra(self, density: Density, active, dist_elems, dist_params) -> Density:
@@ -746,7 +798,7 @@ class GPLEDriver:
                 p, r = mc.generate_extra_points_element(
                     self._split(), density.points[k], n_extra, dist_elems[k], dist_params)
                 if (k == OFFDIAG_INDEX and self._coh_k > 0 and prev is not None
-                        and bool(prev.active[k])):
+                        and _pull(prev.active[k])[0] > 0):
                     kk = self._coh_k
                     p = torch.cat([prev.points[k, :kk], p[kk:]])
                     r = torch.cat([prev.rho[k, :kk], r[kk:]])
@@ -826,21 +878,22 @@ class GPLEDriver:
             tick = GR.Graph(partial(
                 _tick_program, S, cfg.model, cfg.mass, cfg.dt, self._evolve_dist,
                 self._track_moments, self._coh_k, self._coh_div_eff, block_diag, measured),
-                S)
+                S, "tick")
             self._graphs = [key, S, tick, None]
         S = self._graphs[1]
         if period and self._graphs[3] is None:
             self._graphs[3] = GR.Graph(partial(
                 _period_program, S, cfg.model, cfg.mass, cfg.evolve_cutoff, self._coh_k,
                 self._coh_div_eff, cfg.num_extra_points, measured, bool(cfg.pop_rescale),
-                block_diag, active), S)
+                block_diag, active), S, "period_end")
         return S, self._graphs[2], self._graphs[3]
 
     def _host_active(self) -> np.ndarray:
         """``density.active`` on the host, pulled only when the tensor changed."""
         cached, host = self._active_host
         if cached is not self.density.active:
-            host = self.density.active.cpu().numpy()
+            with spans.span("wait"):
+                host = self.density.active.cpu().numpy()
             self._active_host = (self.density.active, host)
         return host
 
@@ -850,13 +903,15 @@ class GPLEDriver:
         ref = self._fit_ref
         GR.copy_((S.density, S.extra, S.gps, S.diag_params, S.off_params),
                  (self.density, self.extra, self.gps, *self.optimizer.fitted_params()))
-        S.scalars.copy_(torch.tensor(
-            [ref["pop"], ref["pur"], ref["target"],
-             purity_factor(self.cfg.dim) * self.purity_ratio, self.purity,
-             getattr(self, "_pop_sum0", 0.0)], dtype=torch.float64))
+        with spans.span("wait"):
+            S.scalars.copy_(torch.tensor(
+                [ref["pop"], ref["pur"], ref["target"],
+                 purity_factor(self.cfg.dim) * self.purity_ratio, self.purity,
+                 getattr(self, "_pop_sum0", 0.0)], dtype=torch.float64))
         S.check.zero_()
         S.counter.zero_()
 
+    @_collected
     @torch.inference_mode()
     def _advance_chunk(self, n_ticks: int) -> bool:
         """Advance ``n_ticks`` ticks -- ``n_ticks`` replays of the tick graph
@@ -866,19 +921,20 @@ class GPLEDriver:
         Returns False (state untouched) if an element activated mid-chunk --
         the caller then replays the chunk tick-by-tick through :meth:`step`.
         A conservation-drift check runs at the chunk end."""
-        t0 = time.perf_counter()
-        active = self._host_active()
-        S, tick, _ = self._programs(active)
-        self._load(S)
-        for _ in range(n_ticks):
-            tick()
-        (rows,) = _pull(S.rows[:n_ticks])
-        smalls = rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
-        if np.any(~smalls != active[None, :]):
-            return False
-        self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
-        self._active_host = (self.density.active, active)
-        self.phase_times["evolve"] += time.perf_counter() - t0
+        with spans.span("chunk", n=n_ticks) as chunk:
+            active = self._host_active()
+            S, tick, _ = self._programs(active)
+            self._load(S)
+            for _ in range(n_ticks):
+                tick()
+            (rows,) = _pull(S.rows[:n_ticks])
+            smalls = rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
+            if np.any(~smalls != active[None, :]):
+                chunk.set(ok=False)
+                return False
+            self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
+            self._active_host = (self.density.active, active)
+            chunk.set(ok=True)
         target_purity = self._target_purity(float(rows[-1, _MC_PUR]))
         if self._drift_detected(float(rows[-1, _POP]), float(rows[-1, _PUR]), target_purity):
             self._reoptimize(target_purity)
@@ -914,7 +970,7 @@ class GPLEDriver:
         against the run's initial total population numerator
         (GPLEConfig.pop_rescale); the factor applied, 1.0 for none or for an
         out-of-band factor outside [0.5, 2]."""
-        (tot,) = _pull(torch.sum(self.density.rho[_DIAG][..., 0]))
+        (tot,) = _pull(torch.sum(diag_rows(self.density.rho)[..., 0]))
         tot = float(tot)
         if not np.isfinite(tot) or tot <= 0.0:
             return 1.0
@@ -923,121 +979,120 @@ class GPLEDriver:
             self._log(f"population rescale out of band (s={s:.3f}): skipped")
             return 1.0
         rho = self.density.rho.clone()
-        rho[_DIAG, :, 0] *= s
+        for k in DIAG_INDICES:
+            rho[k, :, 0] *= s
         self.density = self.density._replace(rho=rho)
         if abs(s - 1.0) > 1e-6:
             self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + 1
         return s
 
+    @_collected
     @torch.inference_mode()
     def _reoptimize(self, target_purity: float) -> str:
         cfg = self.cfg
-        t0 = time.perf_counter()
-        density = self._track_clouds(self.density)
-        self.density = density
-        rescaled = False
-        if cfg.pop_rescale:
-            rescaled = self._pop_conservation_rescale() != 1.0
-            density = self.density
-        if cfg.coh_boost_rescale:
-            rescaled |= self._coh_purity_rescale() < 1.0
-            density = self.density
-        if rescaled and cfg.purity_target == "measured":
-            # the caller's target came from the pre-rescale MC purity
-            (mc_pur,) = _pull(torch.sum(OBS.purity_each_element(density)))
-            target_purity = float(mc_pur) * purity_factor(cfg.dim) * self.purity_ratio
-        t1 = time.perf_counter()
-        energies = OBS.total_energy_each_surface(cfg.model, density, cfg.mass)
-        self.optimizer.purity = target_purity
-        self.optimizer.off_len_div = self._coh_div_eff
-        self.opt_result = self.optimizer.optimize(density, self.extra, energies)
-        t2 = time.perf_counter()
-        diag_params, off_params = self.optimizer.fitted_params()
-        # one RNG split per ACTIVE element, in element order
-        active = density.active.cpu().numpy()
-        keys = [self._split() if active[k] else None for k in range(NUM_ELEMENTS)]
-        self.gps, self.extra, pop, pur = _reopt_epilogue(
-            cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
-            diag_params, off_params, keys, self._block_diag())
-        pop, pur = _pull(pop, pur)
-        # coherence fit-health backoff (GPLEConfig.coh_fit_health_factor):
-        # while the purity integral is detached from its target, stickily
-        # halve the coherence divisor (floor 2), then eject the booster; the
-        # retry refits from the extra cloud the previous try regenerated,
-        # with the same keys, as the JAX package does
-        hf = float(cfg.coh_fit_health_factor)
-        while (hf > 0.0 and active[OFFDIAG_INDEX]
-               and (self._coh_div_eff > 2.0 or self._coh_k > 0)
-               and float(pur) > hf * max(float(target_purity), 1e-30)):
-            if self._coh_div_eff > 2.0:
-                self._coh_div_eff = max(2.0, self._coh_div_eff / 2.0)
+        with spans.span("reopt"):
+            with spans.span("reselect"):
+                density = self._track_clouds(self.density)
+                self.density = density
+                rescaled = False
+                if cfg.pop_rescale:
+                    rescaled = self._pop_conservation_rescale() != 1.0
+                    density = self.density
+                if cfg.coh_boost_rescale:
+                    rescaled |= self._coh_purity_rescale() < 1.0
+                    density = self.density
+                if rescaled and cfg.purity_target == "measured":
+                    # the caller's target came from the pre-rescale MC purity
+                    (mc_pur,) = _pull(torch.sum(OBS.purity_each_element(density)))
+                    target_purity = float(mc_pur) * purity_factor(cfg.dim) * self.purity_ratio
+            with spans.span("tune"):
+                energies = OBS.total_energy_each_surface(cfg.model, density, cfg.mass)
+                self.optimizer.purity = target_purity
                 self.optimizer.off_len_div = self._coh_div_eff
-                self.stats["coh_len_backoffs"] = self.stats.get("coh_len_backoffs", 0) + 1
-                self._log(f"coherence fit unhealthy (purity {float(pur):.3f} vs target "
-                          f"{target_purity:.3f}): len_div -> {self._coh_div_eff}")
-            else:
-                self._coh_k = 0
-                self.optimizer.coh_fit_extra = 0
-                self.stats["coh_boost_ejected"] = self.stats.get("coh_boost_ejected", 0) + 1
-                self._log(f"coherence fit unhealthy at div-2 floor (purity "
-                          f"{float(pur):.3f}): booster EJECTED")
-            self.opt_result = self.optimizer.optimize(density, self.extra, energies)
-            diag_params, off_params = self.optimizer.fitted_params()
-            self.gps, self.extra, pop, pur = _reopt_epilogue(
-                cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
-                diag_params, off_params, keys, self._block_diag())
-            pop, pur = _pull(pop, pur)
-        self._fit_ref = {"pop": float(pop), "pur": float(pur),
-                         "target": max(float(target_purity), 1e-30)}
-        self._sync()
-        t3 = time.perf_counter()
-        self.phase_times["opt_reselect"] += t1 - t0
-        self.phase_times["opt_tune"] += t2 - t1
-        self.phase_times["opt_fit"] += t3 - t2
-        self.phase_times["optimize"] += t3 - t0
+                self.opt_result = self.optimizer.optimize(density, self.extra, energies)
+            with spans.span("fit"):
+                diag_params, off_params = self.optimizer.fitted_params()
+                # one RNG split per ACTIVE element, in element order
+                active = _pull(density.active)[0] > 0
+                keys = [self._split() if active[k] else None for k in range(NUM_ELEMENTS)]
+                self.gps, self.extra, pop, pur = _reopt_epilogue(
+                    cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
+                    diag_params, off_params, keys, self._block_diag())
+                pop, pur = _pull(pop, pur)
+                # coherence fit-health backoff (GPLEConfig.coh_fit_health_factor):
+                # while the purity integral is detached from its target, stickily
+                # halve the coherence divisor (floor 2), then eject the booster; the
+                # retry refits from the extra cloud the previous try regenerated,
+                # with the same keys, as the JAX package does
+                hf = float(cfg.coh_fit_health_factor)
+                while (hf > 0.0 and active[OFFDIAG_INDEX]
+                       and (self._coh_div_eff > 2.0 or self._coh_k > 0)
+                       and float(pur) > hf * max(float(target_purity), 1e-30)):
+                    if self._coh_div_eff > 2.0:
+                        self._coh_div_eff = max(2.0, self._coh_div_eff / 2.0)
+                        self.optimizer.off_len_div = self._coh_div_eff
+                        self.stats["coh_len_backoffs"] = self.stats.get("coh_len_backoffs", 0) + 1
+                        self._log(f"coherence fit unhealthy (purity {float(pur):.3f} vs target "
+                                  f"{target_purity:.3f}): len_div -> {self._coh_div_eff}")
+                    else:
+                        self._coh_k = 0
+                        self.optimizer.coh_fit_extra = 0
+                        self.stats["coh_boost_ejected"] = self.stats.get("coh_boost_ejected", 0) + 1
+                        self._log(f"coherence fit unhealthy at div-2 floor (purity "
+                                  f"{float(pur):.3f}): booster EJECTED")
+                    self.opt_result = self.optimizer.optimize(density, self.extra, energies)
+                    diag_params, off_params = self.optimizer.fitted_params()
+                    self.gps, self.extra, pop, pur = _reopt_epilogue(
+                        cfg.evolve_cutoff, self._coh_k, cfg.num_extra_points, density, self.extra,
+                        diag_params, off_params, keys, self._block_diag())
+                    pop, pur = _pull(pop, pur)
+                self._fit_ref = {"pop": float(pop), "pur": float(pur),
+                                 "target": max(float(target_purity), 1e-30)}
+                self._sync()
         return self.opt_result.opt_type
 
     # -- one tick (main.cpp:135-202) ------------------------------------------------
+    @_collected
     @torch.inference_mode()
     def step(self, tick_no: int) -> str:
         """Tick ``tick_no``: one replay of the tick graph, then the host's
         decisions -- a new or vanished element (seeded or zeroed), the
         scheduled reoptimization, the conservation-drift trigger."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        old_active = self._host_active()
-        S, tick, _ = self._programs(old_active)
-        self._load(S)
-        tick()
-        (row,) = _pull(S.rows[0])
-        density, extra, new_gps = GR.clone((S.density, S.extra, S.gps))
-        self._active_host = (density.active, old_active)
-        pop, pur, mc_pur = row[_POP], row[_PUR], row[_MC_PUR]
-        self.phase_times["evolve"] += time.perf_counter() - t0
-        new_active = row[_SMALL:_SMALL + NUM_ELEMENTS] == 0
-        opt_type = "none"
-        changed = bool(np.any(new_active != old_active))
-        if changed:
-            self._event_ticks.add(tick_no)
-            self.stats["element_activations"] += int(np.sum(new_active & ~old_active))
-            t_seed = time.perf_counter()
-            density, extra = self._element_change(density, extra, old_active, new_active)
-            self.phase_times["seed"] += time.perf_counter() - t_seed
-            # the tick's MC purity predates the reseeding
-            mc_pur = float(torch.sum(OBS.purity_each_element(density)))
-        target_purity = self._target_purity(float(mc_pur))
-        needs_opt = changed or (tick_no % cfg.reopt_freq == 0)
-        if not needs_opt:
-            # drift check with the refitted states (main.cpp:174-189)
-            self.density, self.extra, self.gps = density, extra, new_gps
-            if self._drift_detected(float(pop), float(pur), target_purity):
-                needs_opt = True
-                opt_type = "drift"
+        with spans.span("step", tick=tick_no):
+            with spans.span("evolve"):
+                old_active = self._host_active()
+                S, tick, _ = self._programs(old_active)
+                self._load(S)
+                tick()
+                (row,) = _pull(S.rows[0])
+                density, extra, new_gps = GR.clone((S.density, S.extra, S.gps))
+                self._active_host = (density.active, old_active)
+                pop, pur, mc_pur = row[_POP], row[_PUR], row[_MC_PUR]
+            new_active = row[_SMALL:_SMALL + NUM_ELEMENTS] == 0
+            opt_type = "none"
+            changed = bool(np.any(new_active != old_active))
+            if changed:
                 self._event_ticks.add(tick_no)
-        if needs_opt:
-            self.density, self.extra = density, extra
-            reopt_type = self._reoptimize(target_purity)
-            opt_type = reopt_type if opt_type == "none" else opt_type
+                self.stats["element_activations"] += int(np.sum(new_active & ~old_active))
+                with spans.span("seed"):
+                    density, extra = self._element_change(density, extra, old_active,
+                                                          new_active)
+                # the tick's MC purity predates the reseeding
+                (mc_pur,) = _pull(torch.sum(OBS.purity_each_element(density)))
+            target_purity = self._target_purity(float(mc_pur))
+            needs_opt = changed or (tick_no % cfg.reopt_freq == 0)
+            if not needs_opt:
+                # drift check with the refitted states (main.cpp:174-189)
+                self.density, self.extra, self.gps = density, extra, new_gps
+                if self._drift_detected(float(pop), float(pur), target_purity):
+                    needs_opt = True
+                    opt_type = "drift"
+                    self._event_ticks.add(tick_no)
+            if needs_opt:
+                self.density, self.extra = density, extra
+                reopt_type = self._reoptimize(target_purity)
+                opt_type = reopt_type if opt_type == "none" else opt_type
         return opt_type
 
     def _relabel_gps(self, density: Density, extra: Density) -> GPStates:
@@ -1076,8 +1131,8 @@ class GPLEDriver:
         ``nascent_ref``) takes the fresh labels unscaled while they stay
         within twice that threshold (and, for a diagonal, positive), else it
         rejects.  ``rho_old`` / ``rho_new``: (N, 2) host arrays or tensors."""
-        old = rho_old.cpu().numpy() if isinstance(rho_old, torch.Tensor) else np.asarray(rho_old)
-        new = rho_new.cpu().numpy() if isinstance(rho_new, torch.Tensor) else np.asarray(rho_new)
+        old = _pull(rho_old)[0] if isinstance(rho_old, torch.Tensor) else np.asarray(rho_old)
+        new = _pull(rho_new)[0] if isinstance(rho_new, torch.Tensor) else np.asarray(rho_new)
         thresh = (self.RELABEL_NASCENT_FRAC * nascent_ref
                   if nascent_ref is not None else None)
         if k == OFFDIAG_INDEX:
@@ -1140,7 +1195,7 @@ class GPLEDriver:
         cfg = self.cfg
         if not cfg.track_clouds:
             return density
-        flags = _cloud_drift_flags(density).cpu().numpy()
+        flags = _pull(_cloud_drift_flags(density))[0] > 0
         if self._coh_k > 0 and not cfg.coh_reselect:
             # a live booster keeps its coherence cloud: its points follow
             # their characteristics and its labels are carried
@@ -1167,7 +1222,7 @@ class GPLEDriver:
             s = 1.0
             if cfg.relabel_conserve:
                 # the nascent reference: the diagonal point sums as relabeled so far
-                (sums,) = _pull(rho[_DIAG][..., 0].sum(dim=-1))
+                (sums,) = _pull(diag_rows(rho)[..., 0].sum(dim=-1))
                 s = self._relabel_scale(k, density.rho[k], r, float(np.sum(np.abs(sums))))
                 if s is None:
                     # a corrupt relabel: the element keeps its points and labels
@@ -1219,11 +1274,13 @@ class GPLEDriver:
                 rho[k] = 0.0
                 if k == OFFDIAG_INDEX and self._coh_k > 0:
                     e_rho[k, :self._coh_k] = 0.0
-        active = torch.tensor(new_active, device=self.device)
+        with spans.span("wait"):
+            active = torch.tensor(new_active, device=self.device)
         return (Density(points=pts, rho=rho, active=active),
                 Density(points=e_pts, rho=e_rho, active=active))
 
     # -- a fused segment (scheduled reopts on the device) ------------------------------
+    @_collected
     @torch.inference_mode()
     def _advance_fused(self, start_tick: int, n: int, callback=None):
         """Advance ``n`` ticks -- whole reoptimization periods, the first right
@@ -1245,99 +1302,123 @@ class GPLEDriver:
         reopts' keys are split in the order :meth:`_reoptimize` would take
         them, and their jitter draws made before the first replay."""
         cfg = self.cfg
-        t0 = time.perf_counter()
         opt = self.optimizer
         rf = cfg.reopt_freq
         n_periods = n // rf
-        snap = (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
-                opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
-                dict(self._fit_ref), self.opt_result)
-        ticks = np.arange(start_tick, start_tick + n)
-        reopt_mask = ticks % rf == 0
-        # the chunked path's drift checks: chunk ends and non-reopt boundaries
-        # (the period end reopts unconditionally)
-        in_b = (ticks % cfg.output_freq == 0) | reopt_mask
-        next_in_b = ((ticks + 1) % cfg.output_freq == 0) | ((ticks + 1) % rf == 0)
-        check_mask = (next_in_b | (in_b & ~reopt_mask)) & ~reopt_mask
-        active = self._host_active()
-        n_extra, dim = cfg.num_extra_points, self.density.points.shape[-1]
-        draws = torch.zeros((n_periods, NUM_ELEMENTS, n_extra, dim), dtype=torch.float64,
-                            device=self.device)
-        for p in range(n_periods):
-            for k in np.nonzero(active)[0]:
-                draws[p, k] = self._split().normal((n_extra, dim))
-        checks = torch.tensor(check_mask.reshape(n_periods, rf), device=self.device)
-        S, tick, period_end = self._programs(active, period=True)
-        self._load(S)
-        rows = []
-        for p in range(n_periods):
-            S.check.copy_(checks[p])
-            S.counter.zero_()
-            S.draws.copy_(draws[p])
-            for _ in range(rf):
-                tick()
-            period_end()
-            rows.append(torch.cat([S.rows.reshape(-1), S.period]))
-        host, fit_ref, *params = _pull(torch.stack(rows), S.scalars[:3],
-                                       *GR.leaves((S.diag_params, S.off_params)))
-        tick_rows = host[:, :rf * _TICK_WIDTH].reshape(n, _TICK_WIDTH)
-        period_rows = host[:, rf * _TICK_WIDTH:]
-        small = tick_rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
-        event = (~small != active[None, :]).any(axis=1) | (tick_rows[:, _DRIFT] > 0)
-        if cfg.track_clouds:
-            # the re-selection flags of the period ends (scheduled reopt ticks)
-            event[rf - 1::rf] |= period_rows[:, _RESEL] > 0
-        if event.any():
-            (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
-             opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
-             self._fit_ref, self.opt_result) = snap
-            self.phase_times["fused_abort"] += time.perf_counter() - t0
-            return False, int(ticks[np.argmax(event)])
-        self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
-        self._active_host = (self.density.active, active)
-        # the optimizer takes the last reopt's parameters, as the host reopt
-        # leaves them
-        dp = RK.KernelParams(*params[:3])
-        op = CK.ComplexKernelParams(*params[3:])
-        opt.diag_lengths, opt.diag_magnitudes = dp.lengths, dp.magnitude
-        opt.off_params = np.concatenate([[op.real_magnitude], op.real_lengths,
-                                         [op.imag_magnitude], op.imag_lengths, [op.corr]])
-        opt.off_magnitude = float(op.magnitude)
-        if opt._al_lam is None:
-            opt._al_lam = np.zeros((2, 3))
-        self._fit_ref = dict(zip(("pop", "pur", "target"), map(float, fit_ref)))
-        if cfg.pop_rescale:
-            applied = int(np.sum(np.abs(period_rows[:, _POP_S] - 1.0) > 1e-6))
-            if applied:
-                self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + applied
-        self.opt_result = OptResult(error=float(period_rows[-1, _ERR]),
-                                    steps=[opt.lbfgs_steps], opt_type="moment")
-        self.phase_times["fused"] += time.perf_counter() - t0
+        with spans.span("fused", tick=start_tick, n=n) as fused:
+            snap = (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
+                    opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
+                    dict(self._fit_ref), self.opt_result)
+            ticks = np.arange(start_tick, start_tick + n)
+            reopt_mask = ticks % rf == 0
+            # the chunked path's drift checks: chunk ends and non-reopt boundaries
+            # (the period end reopts unconditionally)
+            in_b = (ticks % cfg.output_freq == 0) | reopt_mask
+            next_in_b = ((ticks + 1) % cfg.output_freq == 0) | ((ticks + 1) % rf == 0)
+            check_mask = (next_in_b | (in_b & ~reopt_mask)) & ~reopt_mask
+            active = self._host_active()
+            n_extra, dim = cfg.num_extra_points, self.density.points.shape[-1]
+            draws = torch.zeros((n_periods, NUM_ELEMENTS, n_extra, dim), dtype=torch.float64,
+                                device=self.device)
+            for p in range(n_periods):
+                for k in np.nonzero(active)[0]:
+                    draws[p, k] = self._split().normal((n_extra, dim))
+            with spans.span("wait"):
+                checks = torch.tensor(check_mask.reshape(n_periods, rf), device=self.device)
+            S, tick, period_end = self._programs(active, period=True)
+            self._load(S)
+            # on the card, each period's tick replays and its period-end replay
+            # lie between CUDA events; both graphs are captured first, so that
+            # no capture lies between two events
+            events = None
+            if self.device.type == "cuda":
+                tick.capture()
+                period_end.capture()
+                events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                          for _ in range(n_periods)]
+            rows = []
+            for p in range(n_periods):
+                S.check.copy_(checks[p])
+                S.counter.zero_()
+                S.draws.copy_(draws[p])
+                if events:
+                    events[p][0].record()
+                for _ in range(rf):
+                    tick()
+                if events:
+                    events[p][1].record()
+                period_end()
+                if events:
+                    events[p][2].record()
+                rows.append(torch.cat([S.rows.reshape(-1), S.period]))
+            host, fit_ref, *params = _pull(torch.stack(rows), S.scalars[:3],
+                                           *GR.leaves((S.diag_params, S.off_params)))
+            if events:
+                # the pull waited for the stream, so every event has completed
+                dev_tick = sum(a.elapsed_time(b) for a, b, _ in events) * 1e-3
+                dev_end = sum(b.elapsed_time(c) for _, b, c in events) * 1e-3
+                spans.add("dev.fused_tick", dev_tick)
+                spans.add("dev.fused_period_end", dev_end)
+                fused.set(dev_tick_s=dev_tick, dev_period_end_s=dev_end)
+            tick_rows = host[:, :rf * _TICK_WIDTH].reshape(n, _TICK_WIDTH)
+            period_rows = host[:, rf * _TICK_WIDTH:]
+            small = tick_rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
+            event = (~small != active[None, :]).any(axis=1) | (tick_rows[:, _DRIFT] > 0)
+            if cfg.track_clouds:
+                # the re-selection flags of the period ends (scheduled reopt ticks)
+                event[rf - 1::rf] |= period_rows[:, _RESEL] > 0
+            if event.any():
+                (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
+                 opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
+                 self._fit_ref, self.opt_result) = snap
+                fused.set(ok=False)
+                return False, int(ticks[np.argmax(event)])
+            self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
+            self._active_host = (self.density.active, active)
+            # the optimizer takes the last reopt's parameters, as the host reopt
+            # leaves them
+            dp = RK.KernelParams(*params[:3])
+            op = CK.ComplexKernelParams(*params[3:])
+            opt.diag_lengths, opt.diag_magnitudes = dp.lengths, dp.magnitude
+            opt.off_params = np.concatenate([[op.real_magnitude], op.real_lengths,
+                                             [op.imag_magnitude], op.imag_lengths, [op.corr]])
+            opt.off_magnitude = float(op.magnitude)
+            if opt._al_lam is None:
+                opt._al_lam = np.zeros((2, 3))
+            self._fit_ref = dict(zip(("pop", "pur", "target"), map(float, fit_ref)))
+            if cfg.pop_rescale:
+                applied = int(np.sum(np.abs(period_rows[:, _POP_S] - 1.0) > 1e-6))
+                if applied:
+                    self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + applied
+            self.opt_result = OptResult(error=float(period_rows[-1, _ERR]),
+                                        steps=[opt.lbfgs_steps], opt_type="moment")
+            fused.set(ok=True)
         # the records of the segment's outputs; a period's last tick reports
         # the observables after its reopt
-        t1 = time.perf_counter()
-        stopped = False
-        for i in np.nonzero(ticks % cfg.output_freq == 0)[0]:
-            obs = (period_rows[i // rf, _OBS_LAST:] if reopt_mask[i]
-                   else tick_rows[i, _OBS:])
-            rec = self._record_from_obs(int(ticks[i]), _unpack_obs(obs),
-                                        "moment" if reopt_mask[i] else "none")
-            if callback is not None:
-                callback(rec)
-            if rec.x_average > -cfg.x0:
-                self._log("wavepacket has left the interaction region")
-                stopped = True
-                break
-        self.phase_times["output"] += time.perf_counter() - t1
+        with spans.span("output"):
+            stopped = False
+            for i in np.nonzero(ticks % cfg.output_freq == 0)[0]:
+                obs = (period_rows[i // rf, _OBS_LAST:] if reopt_mask[i]
+                       else tick_rows[i, _OBS:])
+                rec = self._record_from_obs(int(ticks[i]), _unpack_obs(obs),
+                                            "moment" if reopt_mask[i] else "none")
+                if callback is not None:
+                    callback(rec)
+                if rec.x_average > -cfg.x0:
+                    self._log("wavepacket has left the interaction region")
+                    stopped = True
+                    break
         return True, stopped
 
     # -- observation / output ---------------------------------------------------------
+    @_collected
     @torch.inference_mode()
     def observe(self, tick: int, opt_type: str) -> TickRecord:
         cfg = self.cfg
-        obs = OBS.observe_all(cfg.model, self.density, self.gps, cfg.mass)
-        names = list(obs)
-        return self._record_from_obs(tick, dict(zip(names, _pull(*obs.values()))), opt_type)
+        with spans.span("observe"):
+            obs = OBS.observe_all(cfg.model, self.density, self.gps, cfg.mass)
+            host = dict(zip(list(obs), _pull(*obs.values())))
+        return self._record_from_obs(tick, host, opt_type)
 
     def _record_from_obs(self, tick: int, obs, opt_type: str) -> TickRecord:
         cfg = self.cfg
@@ -1358,7 +1439,8 @@ class GPLEDriver:
         )
         self.history.append(rec)
         if self.writers:
-            self._write_outputs(rec, obs["energies"])
+            with spans.span("write"):
+                self._write_outputs(rec, obs["energies"])
         self._log(
             f"t={rec.time:8.2f} pop={rec.population_prm:.4f} "
             f"E={rec.energy_prm:.6f} purity={rec.purity_prm:.4f} "
@@ -1432,28 +1514,32 @@ class GPLEDriver:
         ``GPLEConfig.init_cache``, the event ticks go to the hints file
         beside the cache (:meth:`_event_hints_path`)."""
         cfg = self.cfg
-        if self.profile_dir:
-            self._start_profiler()
-        try:
-            t0 = time.perf_counter()
-            if resume_from:
-                start = ckpt.load_checkpoint(resume_from, self) + 1
-                self.phase_times["init"] += time.perf_counter() - t0
-                self._log(f"resumed from {resume_from} at tick {start}")
-            else:
-                self._initialize_or_restore()
-                self.phase_times["init"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                self.observe(0, self.opt_result.opt_type)
-                self.phase_times["output"] += time.perf_counter() - t0
-                start = 1
-            total = cfg.total_ticks if max_ticks is None else min(cfg.total_ticks, max_ticks)
-            every = checkpoint_every if checkpoint_path else 0
-            hints = self._event_hints_path() if cfg.init_cache and not resume_from else None
-            self._advance(start, total, callback, checkpoint_path, every, hints)
-        finally:
+        with contextlib.ExitStack() as profiling:
             if self.profile_dir:
-                self._stop_profiler()
+                self._start_profiler()
+                profiling.callback(self._stop_profiler)
+                profiling.enter_context(spans.timeline())
+            timeline = spans.current_timeline()
+            with spans.collect(self.totals), spans.span("run", max_ticks=max_ticks) as root:
+                with spans.span("init"):
+                    if resume_from:
+                        start = ckpt.load_checkpoint(resume_from, self) + 1
+                    else:
+                        self._initialize_or_restore()
+                        start = 1
+                if resume_from:
+                    self._log(f"resumed from {resume_from} at tick {start}")
+                else:
+                    with spans.span("output"):
+                        self.observe(0, self.opt_result.opt_type)
+                total = (cfg.total_ticks if max_ticks is None
+                         else min(cfg.total_ticks, max_ticks))
+                every = checkpoint_every if checkpoint_path else 0
+                hints = (self._event_hints_path() if cfg.init_cache and not resume_from
+                         else None)
+                self._advance(start, total, callback, checkpoint_path, every, hints)
+            if timeline is not None:
+                self.spans = timeline.under(root)
         self._log(f"phase wall times: {self.phase_times}")
         if self.writers:
             self.writers.close()
@@ -1492,6 +1578,7 @@ class GPLEDriver:
         self.profiler.export_chrome_trace(self.trace_path)
         self._log(f"profile trace written to {self.trace_path}")
 
+    @_collected
     def _advance(self, tick: int, total: int, callback=None,
                  checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
                  hints_path: Optional[str] = None):
@@ -1569,9 +1656,8 @@ class GPLEDriver:
                 if checkpoint_every and tick % checkpoint_every == 0:
                     ckpt.save_checkpoint(checkpoint_path, self, tick)
                 if tick % cfg.output_freq == 0:
-                    t0 = time.perf_counter()
-                    rec = self.observe(tick, opt_type)
-                    self.phase_times["output"] += time.perf_counter() - t0
+                    with spans.span("output"):
+                        rec = self.observe(tick, opt_type)
                     if callback is not None:
                         callback(rec)
                     if rec.x_average > -cfg.x0:

@@ -23,7 +23,8 @@ The inner solver is chosen by :func:`_lbfgs_scan`'s ``line_search``:
   ``Optimizer.device="cpu"`` pins the ladder, so the JAX ladder always runs
   it.  Its loop is data dependent: the line search's scalars live on the
   host and every loss evaluation costs one device-to-host pull
-  (:data:`ZOOM_COUNTS` counts them).
+  (the counters ``zoom.<name>`` of :data:`ZOOM_COUNTERS` count them,
+  :mod:`gple_tpu_torch.utils.spans`).
 * ``"fan"`` is :func:`_lbfgs_fixed_fan`, the JAX package's accelerator
   branch: a two-loop recursion and a line search over a fixed fan of step
   scales whose candidates are ONE batched fit (a leading batch axis on every
@@ -43,7 +44,6 @@ booster's share of the moment statistics.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +52,7 @@ import torch
 from gple_tpu_torch.ops import complex_kernels as CK
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.storage import DIAG_INDICES, OFFDIAG_INDEX, Density, diag_rows
+from gple_tpu_torch.utils import spans
 
 #: relative tolerance of the conservation checks (reference opt.h:13)
 AVERAGE_TOLERANCE = 0.05
@@ -238,7 +239,8 @@ def _lbfgs_fixed_fan(fn, z0, steps: int):
     d = z.shape[0]
     m = LBFGS_HISTORY
     f64 = dict(dtype=z.dtype, device=z.device)
-    scales = torch.tensor(LINESEARCH_SCALES + (0.0,), **f64)
+    with spans.span("wait"):
+        scales = torch.tensor(LINESEARCH_SCALES + (0.0,), **f64)
     slots = torch.arange(m, device=z.device)
 
     def fn_flat(zz):
@@ -317,9 +319,10 @@ ZOOM_STEPSIZE_PRECISION = 1e-5
 ZOOM_INCREASE_FACTOR = 2.0
 #: the zoom solve stops when the sup-norm of the L-BFGS update falls below this
 ZOOM_XTOL = 1e-7
-#: running totals of the zoom: solves, L-BFGS iterations, loss evaluations
-#: (value and gradient) and device-to-host pulls
-ZOOM_COUNTS = {"solves": 0, "iterations": 0, "evaluations": 0, "syncs": 0}
+#: the zoom's counters, each ``zoom.<name>`` in the spans' collections:
+#: solves, L-BFGS iterations, loss evaluations (value and gradient) and
+#: device-to-host pulls
+ZOOM_COUNTERS = ("solves", "iterations", "evaluations", "syncs")
 
 _f = np.float64
 
@@ -385,20 +388,20 @@ def _lbfgs_zoom(fn, z0, steps: int):
     du = torch.zeros((m, d), **f64)      # gradient differences
     rhos = torch.zeros((m,), **f64)
     prev_z, prev_g = z, z
-    counts = ZOOM_COUNTS
-    counts["solves"] += 1
+    spans.count("zoom.solves")
 
     def value_grad(zz):
         zz = zz.detach().requires_grad_(True)
         with torch.enable_grad():
             value = fn(zz.reshape((1,) + shape))[0]
             (grad,) = torch.autograd.grad(value, zz, allow_unused=True)
-        counts["evaluations"] += 1
+        spans.count("zoom.evaluations")
         return value.detach(), torch.zeros_like(zz) if grad is None else grad
 
     def pull(*scalars):
-        counts["syncs"] += 1
-        return [_f(v) for v in torch.stack(scalars).tolist()]
+        spans.count("zoom.syncs")
+        with spans.span("wait"):
+            return [_f(v) for v in torch.stack(scalars).tolist()]
 
     value, grad = _f(np.inf), None       # the line search's last value and gradient
     count, it, dz = 0, 0, np.inf
@@ -511,7 +514,7 @@ def _lbfgs_zoom(fn, z0, steps: int):
         z = z + float(step) * u
         dz = float(np.abs(step) * umax)
         it += 1
-        counts["iterations"] += 1
+        spans.count("zoom.iterations")
     return z.reshape(shape)
 
 
@@ -647,8 +650,9 @@ def _global_candidates(data):
     evaluated as one batched fit; the one with the smallest unconstrained
     loss."""
     dlb, dub = data["dlb"], data["dub"]
-    u = torch.tensor(_halton(GLOBAL_STARTS, dlb.numel()).reshape(
-        (GLOBAL_STARTS,) + tuple(dlb.shape)), dtype=dlb.dtype, device=dlb.device)
+    with spans.span("wait"):
+        u = torch.tensor(_halton(GLOBAL_STARTS, dlb.numel()).reshape(
+            (GLOBAL_STARTS,) + tuple(dlb.shape)), dtype=dlb.dtype, device=dlb.device)
     lengths = dlb * (dub / dlb) ** u
     return _take(lengths, torch.argmin(_diag_loss(lengths, data)))
 
@@ -661,7 +665,8 @@ def _global_candidates_off(data):
     unconstrained loss."""
     olb, oub = data["olb"], data["oub"]
     d = olb.shape[0]
-    u = torch.tensor(_halton(GLOBAL_STARTS, d), dtype=olb.dtype, device=olb.device)
+    with spans.span("wait"):
+        u = torch.tensor(_halton(GLOBAL_STARTS, d), dtype=olb.dtype, device=olb.device)
     log_axes = torch.arange(d, device=olb.device) < d - 1
     safe_lb = torch.where(log_axes, torch.clamp(olb, min=1e-30), olb)
     offs = torch.where(log_axes, safe_lb * (oub / safe_lb) ** u, olb + (oub - olb) * u)
@@ -704,7 +709,9 @@ def fit_data(density: Density, extra: Density) -> dict:
 
 def _host(*tensors):
     """Host numpy copies of device tensors, through one device-to-host copy."""
-    flat = torch.cat([t.detach().reshape(-1) for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    with spans.span("wait"):
+        flat = flat.cpu().numpy()
     out, at = [], 0
     for t in tensors:
         out.append(flat[at: at + t.numel()].reshape(tuple(t.shape)))
@@ -787,10 +794,10 @@ class Optimizer:
         """The fit data on the device and the host copy of ``density.active``;
         the ladder's length bounds and constraint targets too (from one host
         copy of the points) when ``opt_mode="ladder"``."""
-        active = density.active.cpu().numpy()
+        (active,) = _host(density.active)
         data = dict(fit_data(density, extra), energies=surface_energies)
         if self.opt_mode == "ladder":
-            pts = density.points.cpu().numpy()
+            (pts,) = _host(density.points)
             dlb, dub = zip(*(self.length_bounds(pts[k]) for k in DIAG_INDICES))
             olb, oub = self.length_bounds(pts[OFFDIAG_INDEX])
             lo, hi = self.corr_bounds
@@ -799,9 +806,10 @@ class Optimizer:
                 olb=np.concatenate([[COMPLEX_MAG_LB], olb, [COMPLEX_MAG_LB], olb, [lo]]),
                 oub=np.concatenate([[COMPLEX_MAG_UB], oub, [COMPLEX_MAG_UB], oub, [hi]]),
                 targets=np.array([1.0, self.total_energy, self.purity]))
-            data.update({k: torch.tensor(v, dtype=density.points.dtype,
-                                         device=density.points.device)
-                         for k, v in host.items()})
+            with spans.span("wait"):
+                data.update({k: torch.tensor(v, dtype=density.points.dtype,
+                                             device=density.points.device)
+                             for k, v in host.items()})
         return data, active
 
     # -- the main entry (reference Optimization::optimize, opt.cpp:1019) -----------
@@ -829,23 +837,24 @@ class Optimizer:
         """The three-stage restart ladder (opt.cpp:1200-1392)."""
         off_active = bool(active[OFFDIAG_INDEX])
         f64 = dict(dtype=data["dlb"].dtype, device=data["dlb"].device)
-        bounds = {k: data[k].cpu().numpy() for k in ("dlb", "dub", "olb", "oub")}
+        names = ("dlb", "dub", "olb", "oub")
+        bounds = dict(zip(names, _host(*(data[k] for k in names))))
 
         def run(start_diag, start_off, tag):
             # the warm stage reuses the previous reopt's converged multipliers
             # and spends half the outer updates; cold restarts start from zero
-            t0 = time.perf_counter()
-            zoom0 = dict(ZOOM_COUNTS)
             warm = tag == "local_previous" and self._al_lam is not None
-            lam0 = torch.tensor(self._al_lam if warm else np.zeros((2, 3)), **f64)
-            out = _run_stage(torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64),
-                             lam0, data, off_active, self.lbfgs_steps,
-                             AL_OUTER // 2 if warm else AL_OUTER, self.line_search)
-            dl, of, err, avgs, lam = _host(*out)
+            with spans.collect() as totals, spans.span("stage", tag=tag):
+                with spans.span("wait"):
+                    lam0 = torch.tensor(self._al_lam if warm else np.zeros((2, 3)), **f64)
+                    starts = (torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64))
+                out = _run_stage(*starts, lam0, data, off_active, self.lbfgs_steps,
+                                 AL_OUTER // 2 if warm else AL_OUTER, self.line_search)
+                dl, of, err, avgs, lam = _host(*out)
             return dict(diag_lengths=dl, off_params=of, error=float(err),
                         check=self._check_averages(avgs, off_active), tag=tag, lam=lam,
-                        averages=avgs, seconds=time.perf_counter() - t0,
-                        zoom={k: ZOOM_COUNTS[k] - zoom0[k] for k in zoom0})
+                        averages=avgs, seconds=totals.seconds("stage"),
+                        zoom={k: totals.count("zoom." + k) for k in ZOOM_COUNTERS})
 
         # clip starts into the current bounds (move_into_bounds, opt.cpp:1054-1067)
         def clipped(diag, off):
@@ -853,9 +862,9 @@ class Optimizer:
                     np.clip(off, bounds["olb"], bounds["oub"]))
 
         #: the stages of this call, in order: their results, constraint checks,
-        #: host walls (each ends with the pull of its results) and the zoom's
-        #: counts (solves, iterations, loss evaluations, host pulls; zeros
-        #: under the fan)
+        #: host walls (the ``stage`` span, which ends with the pull of its
+        #: results) and the zoom's counters (solves, iterations, loss
+        #: evaluations, host pulls; zeros under the fan)
         self.stages = []
         res = run(*clipped(self.diag_lengths, self.off_params), "local_previous")
         self.stages.append(res)
@@ -873,9 +882,10 @@ class Optimizer:
                 res3 = run(*clipped(gdiag, goff), "global")
                 self.stages.append(res3)
                 res = self._compare(res, res3)
-        mags, off_mag = _host(*_analytic_magnitudes(
-            torch.tensor(res["diag_lengths"], **f64), torch.tensor(res["off_params"], **f64),
-            data))
+        with spans.span("wait"):
+            lengths = (torch.tensor(res["diag_lengths"], **f64),
+                       torch.tensor(res["off_params"], **f64))
+        mags, off_mag = _host(*_analytic_magnitudes(*lengths, data))
         return self._finish(dict(res, mags=mags, off_mag=float(off_mag)), active)
 
     # -- moment-based hyperparameters (opt_mode="moment") ---------------------------
@@ -885,7 +895,8 @@ class Optimizer:
         parameters, the error and the magnitudes reach the host in one pull."""
         pts, rho = density.points, density.rho
         f64 = dict(dtype=pts.dtype, device=pts.device)
-        diag = torch.tensor(self.diag_lengths, **f64)
+        with spans.span("wait"):
+            diag = torch.tensor(self.diag_lengths, **f64)
         for d, k in enumerate(DIAG_INDICES):
             if active[k]:
                 diag[d] = _wstd(pts[k], rho[k, :, 0]) / 2.0
@@ -901,11 +912,11 @@ class Optimizer:
             off = torch.cat([mr[None], lr, mi[None], li, torch.zeros(1, **f64)])
             corr = 0.0
         else:
-            off = torch.tensor(self.off_params, **f64)
+            with spans.span("wait"):
+                off = torch.tensor(self.off_params, **f64)
             corr = float(self.off_params[-1])
         err, mags, off_mag = _fit_once_diagnostics(diag, off, data, corr == 0.0)
-        host = torch.cat([diag.reshape(-1), off, err[None], mags, off_mag[None]]).cpu()
-        host = host.numpy()
+        (host,) = _host(torch.cat([diag.reshape(-1), off, err[None], mags, off_mag[None]]))
         nd = diag.numel()
         res = dict(diag_lengths=host[:nd].reshape(diag.shape),
                    off_params=host[nd: nd + off.numel()], error=float(host[-4]),
@@ -948,10 +959,11 @@ class Optimizer:
         """(diag KernelParams with analytic magnitudes, ComplexKernelParams) on
         :attr:`device`, from one host-to-device copy."""
         lengths = np.asarray(self.diag_lengths, dtype=np.float64)
-        flat = torch.tensor(np.concatenate([
-            np.asarray(self.diag_magnitudes, dtype=np.float64), lengths.ravel(),
-            np.asarray(self.off_params, dtype=np.float64), [self.off_magnitude]]),
-            dtype=torch.float64, device=self.device)
+        with spans.span("wait"):
+            flat = torch.tensor(np.concatenate([
+                np.asarray(self.diag_magnitudes, dtype=np.float64), lengths.ravel(),
+                np.asarray(self.off_params, dtype=np.float64), [self.off_magnitude]]),
+                dtype=torch.float64, device=self.device)
         nl = lengths.size
         diag = RK.KernelParams(magnitude=flat[:2], lengths=flat[2: 2 + nl].reshape(
             lengths.shape), noise=torch.full_like(flat[:2], INITIAL_NOISE))

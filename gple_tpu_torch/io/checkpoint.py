@@ -24,13 +24,14 @@ differ, after a resume as from the start.
 
 The restore refits the GP states from the restored clouds and parameters
 and takes the drift references from that fit (``_record_fit_ref``), as the
-JAX package does.
+JAX package does.  It is a ``restore`` span with a ``refit`` child
+(:mod:`gple_tpu_torch.utils.spans`); every copy between the host and the
+device is a ``wait`` span.
 """
 
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -39,7 +40,8 @@ from gple_tpu_torch import observables as OBS
 from gple_tpu_torch.gp.opt import Optimizer, OptResult
 from gple_tpu_torch.sampler.keys import RandomKeys
 from gple_tpu_torch.sampler.mc import MCParameters
-from gple_tpu_torch.storage import DIAG_INDICES, Density
+from gple_tpu_torch.storage import Density, diag_rows
+from gple_tpu_torch.utils import spans
 
 
 def key_from_seed(seed: int) -> np.ndarray:
@@ -55,7 +57,8 @@ def seed_from_key(key) -> int:
 
 
 def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    with spans.span("wait"):
+        return t.detach().cpu().numpy()
 
 
 def save_checkpoint(path: str, driver, tick: int) -> None:
@@ -92,11 +95,16 @@ def save_checkpoint(path: str, driver, tick: int) -> None:
 @torch.inference_mode()
 def load_checkpoint(path: str, driver) -> int:
     """Restore a driver from a checkpoint of either package; returns its tick."""
-    t0 = time.perf_counter()
+    with spans.span("restore"):
+        return _restore(path, driver)
+
+
+def _restore(path: str, driver) -> int:
     cfg, dev = driver.cfg, driver.device
 
     def t(a):
-        return torch.tensor(np.asarray(a), device=dev)
+        with spans.span("wait"):
+            return torch.tensor(np.asarray(a), device=dev)
 
     with np.load(path) as z:
         driver.rng = RandomKeys(seed_from_key(z["key"]), dev)
@@ -128,14 +136,13 @@ def load_checkpoint(path: str, driver) -> int:
         if "pop_sum0" in z and float(z["pop_sum0"]) != 0.0:
             driver._pop_sum0 = float(z["pop_sum0"])
         else:
-            driver._pop_sum0 = float(torch.sum(driver.density.rho[list(DIAG_INDICES)][..., 0]))
+            driver._pop_sum0 = float(_host(torch.sum(diag_rows(driver.density.rho)[..., 0])))
         tick = int(z["tick"])
         opt_error = float(z["opt_error"]) if "opt_error" in z else 0.0
         opt_type = str(z["opt_type"]) if "opt_type" in z else "resumed"
-    t1 = time.perf_counter()
-    driver.gps = driver._refit(driver.density)
-    mc_pur = float(torch.sum(OBS.purity_each_element(driver.density)))
-    driver._record_fit_ref(driver._target_purity(mc_pur))
+    with spans.span("refit"):
+        driver.gps = driver._refit(driver.density)
+        mc_pur = float(_host(torch.sum(OBS.purity_each_element(driver.density))))
+        driver._record_fit_ref(driver._target_purity(mc_pur))
     driver.opt_result = OptResult(error=opt_error, steps=[], opt_type=opt_type)
-    driver._log(f"restore phases: npz={t1 - t0:.1f}s refit={time.perf_counter() - t1:.1f}s")
     return tick

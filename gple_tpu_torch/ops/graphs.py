@@ -24,23 +24,19 @@ captures, and a capture that fails raises: there is no eager fallback.
 Launch counts: a kernel launched while capturing runs nothing, so the
 capture's counts are taken back out of ``gram_kernels.LAUNCHES`` (and
 ``LAUNCHES_BY_SHAPE``) and every replay adds them again (:attr:`launches`).
+
+Spans (:mod:`gple_tpu_torch.utils.spans`): each capture is a ``capture``
+span and each replay a ``launch`` span, both with the graph's ``kind``
+(``tick``, ``period_end``, ``walk``); their calls count the captures and
+replays.  The CPU's eager runs make no span.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from gple_tpu_torch.ops import gram_kernels as GK
-
-#: graphs captured and replayed since the last :func:`reset_counts`
-COUNTS = {"captures": 0, "replays": 0}
-
-
-def reset_counts() -> None:
-    for name in COUNTS:
-        COUNTS[name] = 0
+from gple_tpu_torch.utils import spans
 
 
 def leaves(tree) -> list:
@@ -96,23 +92,23 @@ def copy_(dst, src) -> None:
 
 class Graph:
     """``fn()`` over the static tensors ``state``: run eagerly on the CPU, and
-    on a CUDA device captured into one CUDA graph at the first call and
-    replayed at every call.
+    on a CUDA device captured into one CUDA graph at the first call (or at
+    :meth:`capture`) and replayed at every call.  ``kind`` names the graph
+    in its spans.
 
     The capture first runs ``fn`` once on a side stream (cuBLAS, cuSOLVER
     and the caching allocator set themselves up outside the capture), puts
     ``state`` back bit for bit, then captures under
-    ``torch.inference_mode``.  After it, :attr:`capture_s` is the wall of
-    warm-up and capture, :attr:`pool_bytes` the device memory the graph's
-    private pool reserved, and :attr:`launches` the kernel launches of one
-    replay by (kernel, shape)."""
+    ``torch.inference_mode``.  After it, :attr:`pool_bytes` is the device
+    memory the graph's private pool reserved, and :attr:`launches` the
+    kernel launches of one replay by (kernel, shape)."""
 
-    def __init__(self, fn, state):
+    def __init__(self, fn, state, kind: str):
         self.fn = fn
         self.state = leaves(state)
+        self.kind = kind
         self.graph = None
         self.launches: dict = {}
-        self.capture_s = 0.0
         self.pool_bytes = 0
 
     @property
@@ -124,15 +120,20 @@ class Graph:
             with torch.inference_mode():
                 self.fn()
             return
-        if self.graph is None:
+        self.capture()
+        with spans.span("launch", kind=self.kind):
+            self.graph.replay()
+            GK.count_launches(self.launches)
+
+    def capture(self) -> None:
+        """Capture now, if this is a CUDA graph not captured yet."""
+        if self.graph is not None or self.device.type != "cuda":
+            return
+        with spans.span("capture", kind=self.kind):
             self._capture()
-        self.graph.replay()
-        GK.count_launches(self.launches)
-        COUNTS["replays"] += 1
 
     def _capture(self) -> None:
         dev = self.device
-        t0 = time.perf_counter()
         with torch.inference_mode():
             saved = [t.clone() for t in self.state]
             side = torch.cuda.Stream(dev)
@@ -156,5 +157,3 @@ class Graph:
             torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
-        COUNTS["captures"] += 1

@@ -33,7 +33,9 @@ Results equal the straight loop (:func:`_chain_loop`) bit for bit: the same
 ops on the same draws.  Every chain function takes a ``chains`` argument:
 a :class:`Chains` runs the chain as its blocks' graphs (the driver passes
 the one it keeps for its run), ``None`` runs the straight loop, one host
-launch an op (the baseline the graphs are held to).
+launch an op (the baseline the graphs are held to).  The graphs' kind is
+``walk`` in their spans; the host reads of the tuning's results are ``wait``
+spans (:mod:`gple_tpu_torch.utils.spans`).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from gple_tpu_torch.ops import graphs as GR
-from gple_tpu_torch.utils import ri
+from gple_tpu_torch.utils import ri, spans
 
 #: Metropolis acceptance-ratio window (mc.cpp:19-21)
 MAX_ACCEPT_RATIO = 0.5
@@ -166,7 +168,7 @@ class _ChainProgram:
             accepts=torch.zeros(block, dtype=torch.bool, device=pts.device),
             chain=torch.zeros(block + (d,), **like) if record else None)
         self.dist_fn, self.record = dist_fn, record
-        self.start = GR.Graph(partial(_chain_start, self.S, dist_fn), self.S)
+        self.start = GR.Graph(partial(_chain_start, self.S, dist_fn), self.S, "walk")
         #: block length -> its graph, made at the first chain that needs it
         self.blocks = {}
 
@@ -189,7 +191,8 @@ class _ChainProgram:
         at = 0
         for n in _blocks(n_steps):
             if n not in self.blocks:
-                self.blocks[n] = GR.Graph(partial(_chain_block, S, self.dist_fn, n, record), S)
+                self.blocks[n] = GR.Graph(partial(_chain_block, S, self.dist_fn, n, record), S,
+                                          "walk")
             S.steps.narrow(nb, 0, n).copy_(steps.narrow(nb, at, n))
             S.draws.narrow(nb, 0, n).copy_(draws.narrow(nb, at, n))
             self.blocks[n]()
@@ -213,7 +216,7 @@ class _LabelProgram:
     def __init__(self, dist_fn, dist_params, pts):
         self.S = (GR.clone(dist_params), torch.zeros_like(pts),
                   torch.zeros(pts.shape[:-1] + (2,), dtype=pts.dtype, device=pts.device))
-        self.graph = GR.Graph(partial(_label, self.S, dist_fn), self.S)
+        self.graph = GR.Graph(partial(_label, self.S, dist_fn), self.S, "walk")
 
     def graphs(self) -> list:
         return [self.graph]
@@ -253,11 +256,6 @@ class Chains:
 
     def graphs(self) -> list:
         return [g for p in self.programs.values() for g in p.graphs()]
-
-    @property
-    def capture_s(self) -> float:
-        """Wall seconds of every capture so far (0 on the CPU)."""
-        return sum(g.capture_s for g in self.graphs())
 
     @property
     def pool_bytes(self) -> int:
@@ -326,7 +324,8 @@ def _round_up_pow2(n: int) -> int:
 def _displacement_sweep(key, dist_fn, dist_params, pts, chains=None):
     """Acceptance ratio of each candidate displacement, all 16 chains batched."""
     n_steps = pts.shape[-1] * 500  # mc.cpp:297
-    disps = torch.tensor(POSSIBLE_DISPLACEMENTS, dtype=pts.dtype, device=pts.device)
+    with spans.span("wait"):
+        disps = torch.tensor(POSSIBLE_DISPLACEMENTS, dtype=pts.dtype, device=pts.device)
     batch = len(POSSIBLE_DISPLACEMENTS)
     _, accepts, _ = markov_chain(key.split_stack(batch), dist_fn, dist_params, n_steps,
                                  pts.expand((batch,) + pts.shape), False, disps, chains)
@@ -337,7 +336,9 @@ def tune_displacement(key, dist_fn, dist_params, pts, chains=None) -> float:
     """Pick the largest displacement whose acceptance falls inside
     [0.15, 0.5]; all 16 candidates evaluated in one batched sweep
     (reference mc.cpp:288-331 walks them sequentially largest-first)."""
-    accs = _displacement_sweep(key, dist_fn, dist_params, pts, chains).cpu().numpy()
+    accs = _displacement_sweep(key, dist_fn, dist_params, pts, chains)
+    with spans.span("wait"):
+        accs = accs.cpu().numpy()
     ok = (accs > MIN_ACCEPT_RATIO) & (accs < MAX_ACCEPT_RATIO)
     for i in reversed(range(len(POSSIBLE_DISPLACEMENTS))):
         if ok[i]:
@@ -372,8 +373,8 @@ def tune_steps(key, dist_fn, dist_params, pts, displacement, chains=None) -> int
     acceptance window, rounded up to a power of two."""
     ac, cum_acc = _autocorrelation_sweep(key, dist_fn, dist_params, pts, displacement,
                                          chains)
-    ac = np.abs(ac.cpu().numpy())
-    cum_acc = cum_acc.cpu().numpy()
+    with spans.span("wait"):
+        ac, cum_acc = np.abs(ac.cpu().numpy()), cum_acc.cpu().numpy()
     length = ac.shape[0]
     min_start, min_step, min_val = 0, 0, 0.0
     for _ in range(64):
@@ -420,8 +421,10 @@ def element_monte_carlo(key, dist_fn, dist_params, pts, params: MCParameters, tu
     walk_fn, walk_params = walk if walk is not None else (dist_fn, dist_params)
     k0, k1, k2, k3 = key.split(4)
     if tune == "auto":
-        acc = float(_probe_acceptance(k0, walk_fn, walk_params, pts, 100,
-                                      params.displacement, chains))
+        acc = _probe_acceptance(k0, walk_fn, walk_params, pts, 100, params.displacement,
+                                chains)
+        with spans.span("wait"):
+            acc = float(acc)
         tune = not (MIN_ACCEPT_RATIO < acc < MAX_ACCEPT_RATIO)
     if tune:
         params.displacement = tune_displacement(k1, walk_fn, walk_params, pts, chains)
@@ -471,7 +474,7 @@ def seed_new_element(key, candidate_pts, num_points: int, dist_fn, dist_params,
     top_idx = order[:num_points]
     top_score = score[top_idx]
     chosen = torch.where((top_score > 0.0)[:, None], candidate_pts[top_idx],
-                         candidate_pts[top_idx[0]])
+                         candidate_pts[top_idx[:1]])     # not [0]: a host pull
     # the straight route passes no ``chains``, so a stand-in walk need not take it
     graphed = {} if chains is None else {"chains": chains}
     return element_monte_carlo(key, dist_fn, dist_params, chosen, params, tune=True,

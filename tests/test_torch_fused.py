@@ -43,6 +43,7 @@ from gple_tpu_torch import driver as TD
 from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.gp.opt import Optimizer
 from gple_tpu_torch.ops import graphs as GR
+from gple_tpu_torch.utils import spans
 from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_mc import JaxKeys
 from test_torch_observables import both_states
@@ -235,7 +236,7 @@ class _ScriptedDriver(TD.GPLEDriver):
         self.writers = None
         self.verbose = False
         self.history = []
-        self.phase_times = {"output": 0.0}
+        self.totals = spans.Totals()
         self._event_ticks = set()
         self.aborts = dict(aborts)
         self.calls = []

@@ -16,6 +16,7 @@ import torch
 
 from gple_tpu_torch import driver as TD
 from gple_tpu_torch.ops import graphs as GR
+from gple_tpu_torch.utils import spans
 from test_torch_kernels import _warm_torch_exp, cuda_device  # noqa: F401 (fixtures)
 from test_torch_kernels import one_torch_thread  # noqa: F401 (fixture)
 
@@ -39,7 +40,7 @@ def test_clone_keeps_the_tree():
 
 def test_cpu_graph_runs_eagerly():
     state = torch.zeros(2)
-    graph = GR.Graph(lambda: state.add_(1.0), state)
+    graph = GR.Graph(lambda: state.add_(1.0), state, "tick")
     graph()
     graph()
     assert state.tolist() == [2.0, 2.0] and graph.graph is None
@@ -93,13 +94,13 @@ def test_graphed_walk_equals_the_eager_walk_on_the_card(cuda_device):
     pts = torch.tensor(np.array([-10.0, 30.0]) + rng.normal(size=(256, 2)) * [0.5, 2.0], **f64)
     out = {}
     for name, chains in (("eager", None), ("graph", mc.Chains())):
-        GR.reset_counts()
-        with torch.inference_mode():
+        with torch.inference_mode(), spans.collect() as totals:
             p, r, tuned = mc.element_monte_carlo(RandomKeys(3, cuda_device),
                                                  TD._surrogate_dist, params, pts,
                                                  mc.MCParameters(), chains=chains)
-        out[name] = (p, r, (tuned.num_steps, tuned.displacement), dict(GR.COUNTS))
-    assert out["graph"][3]["replays"] > 0 and out["eager"][3]["replays"] == 0
+        out[name] = (p, r, (tuned.num_steps, tuned.displacement), totals)
+    assert out["graph"][3].calls("launch") > 0 and out["eager"][3].calls("launch") == 0
+    assert out["graph"][3].calls("capture") > 0 and out["eager"][3].calls("capture") == 0
     assert out["graph"][2] == out["eager"][2]
     assert torch.equal(out["graph"][0], out["eager"][0])
     assert torch.equal(out["graph"][1], out["eager"][1])

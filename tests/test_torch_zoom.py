@@ -37,6 +37,7 @@ from gple_tpu_torch import convert
 from gple_tpu_torch import validation as V
 from gple_tpu_torch.gp import opt as O
 from gple_tpu_torch.oracles import schrodinger as S
+from gple_tpu_torch.utils import spans
 from test_opt import MASS, MODEL, SIGMA, sampled_density
 from test_torch_full_ard import _tilted_snapshot
 from test_torch_kernels import _warm_torch_exp, one_torch_thread  # noqa: F401 (fixtures)
@@ -83,15 +84,16 @@ def test_zoom_iterates_match_optax(name):
     jfn, tfn, z0 = PROBLEMS[name]
     # the step budget as a traced value: one compile for the 20 solves
     jzoom = jax.jit(lambda z, steps: JO._lbfgs_zoom(jfn, z, steps))
-    counts = dict(O.ZOOM_COUNTS)
+    totals = spans.Totals()
     for steps in range(1, 21):
         theirs = np.asarray(jzoom(jnp.asarray(z0), jnp.asarray(steps)))
-        ours = O._lbfgs_zoom(tfn, torch.tensor(z0), steps)
+        with spans.collect(totals):
+            ours = O._lbfgs_zoom(tfn, torch.tensor(z0), steps)
         assert rel(ours, theirs) <= TOL_ITERATE, (steps, rel(ours, theirs))
     assert not np.allclose(theirs, z0)
     # one pull per line-search evaluation and one per iteration (which
     # carries a solve's first value)
-    done = {k: O.ZOOM_COUNTS[k] - counts[k] for k in counts}
+    done = {k: totals.count("zoom." + k) for k in O.ZOOM_COUNTERS}
     assert done["solves"] == 20 and done["iterations"] == sum(range(1, 21))
     assert done["syncs"] == done["evaluations"] - done["solves"] + done["iterations"]
 
