@@ -126,7 +126,10 @@ Phases (any failure raises and the script exits non-zero):
    cuBLAS pick another algorithm under capture); s/tick of both in turns,
    the host's launch calls a tick of both, the device-busy share of a
    traced window of 10 replays, the capture's wall and the graph pool's
-   memory; (b) ``run(max_ticks=200)`` without writers, ``fused_chunk`` 100
+   memory; then the tick graph as the driver captures it (the activation
+   test on the host's active tuple) against one captured with all nine
+   pairs: device ms a tick in turns, the cuBLAS GEMMs of one replay of each,
+   and both replays' states bit for bit; (b) ``run(max_ticks=200)`` without writers, ``fused_chunk`` 100
    against 0 in turns (chunked, fused, fused, chunked): records 1e-6
    relative, points 1e-7, rho 1e-6, keys and stats equal
    (``tests/test_fused_trajectory.py``'s tolerances), the fused path taken;
@@ -1990,8 +1993,9 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
     its captured graph, bit for bit; s/tick of both in turns (eager, graph,
     graph, eager); the host's launch calls per tick of each and the
     device-busy share of a traced window of replays; the capture's wall and
-    the graph pool's memory.  ``device="cpu"`` rehearses it (the graph's
-    function runs eagerly there)."""
+    the graph pool's memory; and the activation test on the host's tuple
+    against all nine pairs (:func:`_activation_pairs`).  ``device="cpu"``
+    rehearses it (the graph's function runs eagerly there)."""
     import os
 
     from gple_tpu_torch import driver as TD
@@ -2037,21 +2041,89 @@ def graph_phase(n: int = TRAJ_N, device: str = "cuda"):
             _traced(lambda: [tick() for _ in range(GRAPH_TICKS)], path, device)
             window = trace_breakdown(path)
             window["host_launches"] = _host_launches(path)
+        pairs = _activation_pairs(drv, S, tick, device)
     result = dict(n=n, ticks=GRAPH_TICKS, s_per_tick=s_tick, bitwise=equal, max_rel_err=err,
                   capture_s=captured.seconds("capture"), pool_mib=tick.pool_bytes / 2**20,
                   launches_per_replay={f"{k[0]} {k[1]}": v for k, v in tick.launches.items()},
                   host_launches_one_tick=one,
                   graphed_window={k: window[k] for k in ("window_ms", "device_busy_ms",
                                                          "device_busy_share", "device_ops",
-                                                         "host_launches", "families")})
+                                                         "host_launches", "families")},
+                  activation_test=pairs)
     log("graph: " + json.dumps(result))
     # cuBLAS and cuSOLVER may pick other algorithms under capture; the
     # replays must then stay within 1e-12 of the eager ticks, relative
     if not (equal or err <= 1e-12):
         raise AssertionError(f"graph: replays differ from the eager ticks by {err}")
+    if not (pairs["bitwise"] or pairs["max_rel_err"] <= 1e-12):
+        raise AssertionError("graph: the tick on the host's tuple differs from the full "
+                             f"tick by {pairs['max_rel_err']}")
     if device == "cuda":
         _check_path_launches("graph", launches)
     return launches, by_shape, result
+
+
+def _activation_pairs(drv, S, tick, device: str) -> dict:
+    """Phase 22(a), the activation test: the driver's tick graph (the test on
+    the host's active tuple, only the pairs it reads) against the same
+    program captured with None (all nine pairs) on the same static state.
+    Device ms a tick by CUDA events over GRAPH_TICKS replays of each, in
+    turns (tuple, None, None, tuple); the device operations of one traced
+    replay of each by family (the cuBLAS GEMMs: the test's 33 complex and 3
+    batched diagonal variance products with None, 2 products on (True,
+    False, False)); the states and rows after GRAPH_TICKS replays of each,
+    bit for bit.  On the CPU (a rehearsal) both run eagerly and no device
+    number is taken."""
+    import os
+    from functools import partial
+
+    from gple_tpu_torch import driver as TD
+    from gple_tpu_torch.dynamics import evolve as EV
+    from gple_tpu_torch.ops import graphs as GR
+
+    active = tick.fn.args[-1]
+    graphs = {"tuple": tick,
+              "none": GR.Graph(partial(TD._tick_program, *tick.fn.args[:-1], None), S, "tick")}
+
+    def replays(graph):
+        drv._load(S)
+        if device != "cuda":
+            for _ in range(GRAPH_TICKS):
+                graph()
+            return None
+        graph.capture()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(GRAPH_TICKS):
+            graph()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / GRAPH_TICKS
+
+    dev_ms = {name: [] for name in graphs}
+    states = {}
+    for name in ("tuple", "none", "none", "tuple"):
+        dev_ms[name].append(replays(graphs[name]))
+        states[name] = GR.clone((S.density, S.extra, S.gps, S.rows))
+    ours, theirs = GR.leaves(states["tuple"]), GR.leaves(states["none"])
+    one = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, graph in graphs.items():
+            drv._load(S)
+            path = os.path.join(tmp, f"{name}.json")
+            _traced(graph, path, device)
+            trace = trace_breakdown(path, top=8)
+            one[name] = {k: trace[k] for k in ("device_busy_ms", "device_ops", "top",
+                                               "families")}
+    gemms = {name: t["families"].get("cuBLAS GEMM", {}).get("calls", 0)
+             for name, t in one.items()}
+    return dict(active=list(active), pairs={"tuple": EV.variance_pairs(active),
+                                            "none": EV.variance_pairs(None)},
+                dev_ms_per_tick=dev_ms, gemm_calls_per_tick=gemms,
+                gemm_calls_saved=gemms["none"] - gemms["tuple"],
+                bitwise=all(torch.equal(a, b) for a, b in zip(ours, theirs)),
+                max_rel_err=_rel_err(states["tuple"], states["none"]),
+                pool_mib_none=graphs["none"].pool_bytes / 2**20, one_replay=one)
 
 
 def _chains_info(chains) -> dict:

@@ -66,8 +66,11 @@ under it ``init`` (``mc_select``, ``extra``, ``optimize`` and ``refit`` of
 synchronize and every copy of host data to the card is a ``wait`` span.  A
 fused segment on the card times its tick replays and its period-end replays
 with CUDA events, read after the segment's one pull, into the totals
-``dev.fused_tick`` and ``dev.fused_period_end``.  The run's spans add to
-``GPLEDriver.totals``; ``phase_times`` is a view of them (:data:`PHASE_SPANS`).
+``dev.fused_tick`` and ``dev.fused_period_end``.  The counter
+``small.pairs`` is the activation test's (source, target) predictions with
+variance, added by the host for every tick replay (:func:`_count_pairs`).
+The run's spans and counters add to ``GPLEDriver.totals``; ``phase_times``
+is a view of the spans (:data:`PHASE_SPANS`).
 """
 
 from __future__ import annotations
@@ -126,9 +129,10 @@ from gple_tpu_torch.utils.constants import purity_factor
 
 # -- distribution functions ---------------------------------------------------------
 
-def gp_dist_all(gps: GPStates, pts3):
-    """(3, M, PhaseDim) -> (3, M, 2) cutoff GP predictions (with variance)."""
-    return predict_all(gps, pts3, with_variance=True)
+def gp_dist_all(gps: GPStates, pts3, targets=None):
+    """(3, M, PhaseDim) -> (3, M, 2) cutoff GP predictions (with variance) of
+    the elements ``targets`` (:func:`predict_all`; None for all)."""
+    return predict_all(gps, pts3, with_variance=True, targets=targets)
 
 
 def gp_dist_all_nocut(gps: GPStates, pts3):
@@ -197,17 +201,19 @@ def _off_extra_slice(extra: Density, k: int):
 def _tick_core(model: str, mass: float, dt: float, density: Density,
                extra: Density, gps: GPStates, diag_params, off_params,
                evolve_dist, track_moments: str, coh_fit_extra: int,
-               coh_len_div: float, block_diag: bool):
+               coh_len_div: float, block_diag: bool, active=None):
     """THE tick body: evolve density + extra points with ``evolve_dist``, run
-    the is-very-small activation test with the cutoff distribution,
-    optionally track the moment parameters of the moved cloud
-    (``track_moments`` "all" or "off", coherence lengths over
+    the is-very-small activation test with the cutoff distribution (on the
+    pairs whose result the host tuple ``active`` reads, all nine with None:
+    :func:`EV.is_very_small`), optionally track the moment parameters of the
+    moved cloud (``track_moments`` "all" or "off", coherence lengths over
     ``coh_len_div``), and refit the GP states from the moved points, the
     coherence with the first ``coh_fit_extra`` extra points (the booster).
     Returns ``(density, extra, small (3,) bool, gps)``."""
     new_density = EV.evolve_step(model, mass, dt, density, evolve_dist, gps)
     new_extra = EV.evolve_step(model, mass, dt, extra, evolve_dist, gps)
-    small = EV.is_very_small(model, mass, dt, new_density, gp_dist_all, gps)
+    small = EV.is_very_small(model, mass, dt, new_density, gp_dist_all, gps,
+                             active=active)
     off_extra = _off_extra_slice(new_extra, coh_fit_extra)
     if track_moments != "none":
         diag_params, off_params = moment_kernel_params(
@@ -337,6 +343,14 @@ _RESEL, _ERR, _POP_S, _OBS_LAST = 0, 1, 2, 3
 _PERIOD_WIDTH = _OBS_LAST + _OBS_WIDTH
 
 
+def _count_pairs(active, n_ticks: int) -> None:
+    """Add ``n_ticks`` replays of the tick graph of the host tuple ``active``
+    to the counter ``small.pairs``: the activation test's predictions with
+    variance (:func:`EV.variance_pairs`).  A count inside the graph would run
+    at its capture only."""
+    spans.count("small.pairs", n_ticks * EV.variance_pairs(active))
+
+
 def _pack_obs(obs: dict):
     return torch.cat([obs[name].reshape(-1).to(torch.float64) for name, _ in _OBS_FIELDS])
 
@@ -370,7 +384,7 @@ class _Static(NamedTuple):
 
 def _tick_program(S: _Static, model: str, mass: float, dt: float, evolve_dist,
                   track_moments: str, coh_k: int, coh_len_div: float, block_diag: bool,
-                  measured_target: bool) -> None:
+                  measured_target: bool, active=None) -> None:
     """One tick on ``S`` in place, the body of the tick graph: :func:`_tick_core`
     (the one definition of the tick), the new fit's population and purity
     integrals, the MC purity, the target purity, the conservation-drift
@@ -378,10 +392,12 @@ def _tick_program(S: _Static, model: str, mass: float, dt: float, evolve_dist,
     :meth:`GPLEDriver._drift_detected`), and the observables, as row
     ``S.counter`` of ``S.rows``; then the counter moves on.  The counterpart
     of ``_tick_fused`` and of the tick of ``_ticks_scan_fused``
-    (``gple_tpu/driver.py:167-187``, ``:463-482``)."""
+    (``gple_tpu/driver.py:167-187``, ``:463-482``).  ``active`` is the host's
+    tuple of ``S.density.active`` (static: the graph's key); None tests all
+    nine pairs."""
     density, extra, small, gps = _tick_core(
         model, mass, dt, S.density, S.extra, S.gps, S.diag_params, S.off_params,
-        evolve_dist, track_moments, coh_k, coh_len_div, block_diag)
+        evolve_dist, track_moments, coh_k, coh_len_div, block_diag, active)
     obs = OBS.observe_all(model, density, gps, mass)
     pop, pur, mc_pur = obs["pop_prm"], obs["purity_prm"], obs["purity_mci_raw"]
     fpop, fpur, ftgt, pur_scale, fixed_target, _ = S.scalars
@@ -877,8 +893,8 @@ class GPLEDriver:
                 period=torch.zeros(_PERIOD_WIDTH, **f64))
             tick = GR.Graph(partial(
                 _tick_program, S, cfg.model, cfg.mass, cfg.dt, self._evolve_dist,
-                self._track_moments, self._coh_k, self._coh_div_eff, block_diag, measured),
-                S, "tick")
+                self._track_moments, self._coh_k, self._coh_div_eff, block_diag, measured,
+                active), S, "tick")
             self._graphs = [key, S, tick, None]
         S = self._graphs[1]
         if period and self._graphs[3] is None:
@@ -927,6 +943,7 @@ class GPLEDriver:
             self._load(S)
             for _ in range(n_ticks):
                 tick()
+            _count_pairs(active, n_ticks)
             (rows,) = _pull(S.rows[:n_ticks])
             smalls = rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
             if np.any(~smalls != active[None, :]):
@@ -1065,6 +1082,7 @@ class GPLEDriver:
                 S, tick, _ = self._programs(old_active)
                 self._load(S)
                 tick()
+                _count_pairs(old_active, 1)
                 (row,) = _pull(S.rows[0])
                 density, extra, new_gps = GR.clone((S.density, S.extra, S.gps))
                 self._active_host = (density.active, old_active)
@@ -1351,6 +1369,7 @@ class GPLEDriver:
                 if events:
                     events[p][2].record()
                 rows.append(torch.cat([S.rows.reshape(-1), S.period]))
+            _count_pairs(active, n_periods * rf)
             host, fit_ref, *params = _pull(torch.stack(rows), S.scalars[:3],
                                            *GR.leaves((S.diag_params, S.off_params)))
             if events:

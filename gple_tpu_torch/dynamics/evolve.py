@@ -19,6 +19,8 @@ weight tables are built on the device and in the dtype of the points.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from gple_tpu_torch.models import tully
@@ -342,15 +344,40 @@ def predict_new_points(model: str, mass, dt, pts, elem: int, dist_fn, dist_param
 
 
 def is_very_small(model, mass, dt, density: Density, dist_fn, dist_params,
-                  criterion: float = 0.0):
+                  criterion: float = 0.0, active: "tuple | None" = None):
     """Per-element smallness flags: an inactive element stays small only if
     every test-point prediction is below epsilon; active elements are never
-    small.  Probes the union of every element's cloud.  Returns (3,) bool."""
+    small.  Probes the union of every element's cloud.  Returns (3,) bool.
+
+    ``active``: the host's copy of ``density.active`` (3 bools), or None.
+    With it, an active source is not predicted at all, and an inactive one
+    predicts only the active targets (``dist_fn`` takes them as its
+    ``targets`` keyword, :func:`gple_tpu_torch.storage.predict_all`): the
+    others' rows are zero in the full prediction too.  That is
+    :func:`variance_pairs` predictions instead of nine."""
     test_pts = density.points.reshape(-1, density.points.shape[-1])
+    if active is not None:
+        active = tuple(bool(a) for a in active)
+        if all(active):
+            return torch.zeros(NUM_ELEMENTS, dtype=torch.bool, device=test_pts.device)
+        dist_fn = partial(dist_fn, targets=active)
     small = []
     for k in range(NUM_ELEMENTS):
+        if active is not None and active[k]:
+            small.append(torch.zeros((), dtype=torch.bool, device=test_pts.device))
+            continue
         pred = predict_new_points(model, mass, dt, test_pts, k, dist_fn, dist_params,
                                   criterion)
         all_small = torch.all(ri.abs2(pred) < VERY_SMALL_EPSILON)
         small.append(~density.active[k] & all_small)
     return torch.stack(small)
+
+
+def variance_pairs(active: "tuple | None") -> int:
+    """The (source, target) predictions with variance that one
+    :func:`is_very_small` call makes for the host tuple ``active``: nine
+    without one, else (inactive sources) x (active targets)."""
+    if active is None:
+        return NUM_ELEMENTS * NUM_ELEMENTS
+    n_on = sum(bool(a) for a in active)
+    return (NUM_ELEMENTS - n_on) * n_on

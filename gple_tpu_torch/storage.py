@@ -231,16 +231,31 @@ def predict_element(gps: GPStates, elem: int, pts, with_variance: bool = True):
 
 
 def predict_all(gps: GPStates, pts3, with_variance: bool = True,
-                off_with_variance: "bool | None" = None):
+                off_with_variance: "bool | None" = None, targets: "tuple | None" = None):
     """Every element's :func:`predict_element` at once: pts (3, M, PhaseDim)
     -> (3, M, 2) RI.  Both diagonal elements go through one batched predict
     (one kernel launch), the off-diagonal through one complex predict, whose
-    cutoff ``off_with_variance`` defaults to ``with_variance``."""
+    cutoff ``off_with_variance`` defaults to ``with_variance``.  ``targets``
+    (3 host bools, None for all) names the elements to predict; the others'
+    rows are zeros and cost nothing (a lone diagonal target is predicted
+    alone)."""
     if off_with_variance is None:
         off_with_variance = with_variance
-    _, _, diag_cut = RK.predict_real(gps.diag, diag_rows(pts3), with_variance)
-    _, _, off_cut = CK.predict_complex(gps.offdiag, pts3[OFFDIAG_INDEX], off_with_variance)
-    out = torch.stack([ri.ri(diag_cut[0]), off_cut, ri.ri(diag_cut[1])])
+    if targets is None:
+        targets = (True,) * NUM_ELEMENTS
+    rows = [None if on else torch.zeros(pts3.shape[1], 2, dtype=pts3.dtype,
+                                        device=pts3.device) for on in targets]
+    diag = [k for k in DIAG_INDICES if targets[k]]
+    if len(diag) == 2:
+        _, _, diag_cut = RK.predict_real(gps.diag, diag_rows(pts3), with_variance)
+        rows[0], rows[2] = ri.ri(diag_cut[0]), ri.ri(diag_cut[1])
+    elif diag:
+        (k,) = diag
+        rows[k] = predict_element(gps, k, pts3[k], with_variance)
+    if targets[OFFDIAG_INDEX]:
+        _, _, rows[OFFDIAG_INDEX] = CK.predict_complex(gps.offdiag, pts3[OFFDIAG_INDEX],
+                                                       off_with_variance)
+    out = torch.stack(rows)
     return torch.where(gps.active[:, None, None], out, 0.0)
 
 

@@ -4,7 +4,10 @@
 driver phase, a graph capture or replay, a host wait on the device.  Spans
 nest; the attributes (``tick``, ``n``, ``ok``, ``kind``, ...) say which
 piece it was, and ``s.set(...)`` adds to them before the span closes.
-``count(name, n)`` adds to a counter.
+``count(name, n)`` adds to a counter.  The port's counters are the zoom
+solver's ``zoom.solves``, ``zoom.iterations``, ``zoom.evaluations`` and
+``zoom.syncs`` (``gp/opt.py``) and the tick's ``small.pairs``, the
+activation test's predictions with variance (``driver._count_pairs``).
 
 **Totals** are always on.  Every closed span adds its duration and one call,
 by name, to each active collection (:func:`collect`), and every counter to

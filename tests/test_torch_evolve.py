@@ -8,6 +8,8 @@ through GP predictions and agree to 1e-8 (the limits
 ``tests/test_sharding.py`` holds the JAX step to).
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,11 +17,13 @@ import torch
 
 import __graft_entry__ as graft
 from gple_tpu import driver as JD
+from gple_tpu import storage as JS
 from gple_tpu.dynamics import evolve as JEV
 from gple_tpu.models import tully as JT
 from gple_tpu.sampler import mc as JMC
 from gple_tpu_torch import convert
 from gple_tpu_torch import driver as TD
+from gple_tpu_torch import storage as TS
 from gple_tpu_torch.dynamics import evolve as EV
 from gple_tpu_torch.entry import example_state
 from gple_tpu_torch.models import tully as T
@@ -151,14 +155,62 @@ def test_predict_new_points_matches(states, elem):
     close(out, ref, 1e-8)
 
 
-@pytest.mark.parametrize("active", [(True, True, True), (True, False, False)])
-def test_is_very_small_matches(states, active):
-    jd, jg, td, tg = states
-    jd = jd._replace(active=jnp.asarray(active))
-    jg = jg._replace(active=jnp.asarray(active))
-    tgps = convert.to_torch(jg, "cpu")
-    tden = convert.to_torch(jd, "cpu")
-    ref = np.asarray(JEV.is_very_small(MODEL, MASS, DT, jd, JD.gp_dist_all, jg))
-    out = EV.is_very_small(MODEL, MASS, DT, tden, TD.gp_dist_all, tgps).numpy()
-    np.testing.assert_array_equal(out, ref)
-    assert not out[np.asarray(active)].any()  # active elements are never small
+#: every non-empty active tuple; the first two keep the ids they had
+ACTIVE_TUPLES = [(True, True, True), (True, False, False), (True, True, False),
+                 (True, False, True), (False, True, True), (False, True, False),
+                 (False, False, True)]
+
+
+@pytest.fixture(scope="module")
+def crossing(states):
+    """The example state moved to the avoided crossing (x about 0), refitted:
+    there the populated (0,0) element feeds every other element above the
+    activation test's epsilon within a tick."""
+    jd, jg, _, _ = states
+    jd = jd._replace(points=jd.points + jnp.asarray([10.0, 0.0]))
+    jg = JS.fit_gp_states(jg.diag.params, jg.offdiag.params, jd, block_diag=True)
+    return jd, jg
+
+
+@pytest.mark.parametrize("active", ACTIVE_TUPLES)
+def test_is_very_small_matches(states, crossing, active):
+    """JAX's flags, the port's full test (nine predictions) and the port's
+    test on the host's tuple (only the pairs it reads) agree, far from the
+    coupling and at the crossing, where an inactive element is not small
+    because its prediction is above epsilon."""
+    for where, (jd, jg) in (("far", states[:2]), ("crossing", crossing)):
+        jd = jd._replace(active=jnp.asarray(active))
+        jg = jg._replace(active=jnp.asarray(active))
+        tgps = convert.to_torch(jg, "cpu")
+        tden = convert.to_torch(jd, "cpu")
+        ref = np.asarray(JEV.is_very_small(MODEL, MASS, DT, jd, JD.gp_dist_all, jg))
+        out = EV.is_very_small(MODEL, MASS, DT, tden, TD.gp_dist_all, tgps).numpy()
+        read = EV.is_very_small(MODEL, MASS, DT, tden, TD.gp_dist_all, tgps,
+                                active=active).numpy()
+        np.testing.assert_array_equal(out, ref, err_msg=where)
+        np.testing.assert_array_equal(read, ref, err_msg=where)
+        assert not out[np.asarray(active)].any()  # active elements are never small
+        if where == "crossing" and active[0]:
+            assert not out.any(), out
+
+
+def test_variance_pairs_counts_the_pairs_read():
+    assert EV.variance_pairs(None) == 9
+    assert [EV.variance_pairs(a) for a in ACTIVE_TUPLES] == [0, 2, 2, 2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("targets", list(itertools.product([True, False], repeat=3)))
+def test_predict_all_targets(states, targets):
+    """``predict_all`` on a subset of targets: the full call's rows where
+    predicted (a lone diagonal element alone, not batched), zeros elsewhere."""
+    _, _, td, tg = states
+    pts = td.points + torch.tensor([0.05, -0.3], dtype=torch.float64)
+    for with_variance in (True, False):
+        full = TS.predict_all(tg, pts, with_variance)
+        out = TS.predict_all(tg, pts, with_variance, targets=targets)
+        assert out.shape == full.shape
+        for k, on in enumerate(targets):
+            if on:
+                close(out[k], full[k], 1e-13)
+            else:
+                assert torch.equal(out[k], torch.zeros_like(out[k]))

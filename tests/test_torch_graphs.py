@@ -6,7 +6,10 @@ it writes.  On the card (``gpu``): ten replays of the captured tick graph
 against ten eager ``_tick_core`` ticks from the same state, bit for bit,
 with the hand-written kernels' launches counted at every replay; and a
 tuned Metropolis walk as graph replays against the same walk as the
-straight loop, bit for bit.  This file
+straight loop, bit for bit.  On the CPU besides: the tick's activation
+test on the host's active tuple against the full test, the GP states'
+active mask against the density's at every load of the tick graph's state,
+and the ``small.pairs`` counter.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_graphs.py``.
 """
@@ -125,3 +128,112 @@ def test_failed_chain_capture_raises(cuda_device):
             mc.markov_chain(RandomKeys(1, cuda_device), pulls,
                             (torch.ones(4, dtype=torch.float64, device=cuda_device),), 3,
                             pts, False, 0.1, mc.Chains())
+
+
+# -- the activation test on the host's tuple -------------------------------------------
+
+def _before_the_crossing(n: int = 64):
+    """The example state and a 5N extra cloud moved to x about -1, before the
+    avoided crossing, with only the (0,0) element populated (active
+    (True, False, False), zero labels elsewhere) and the GP states refitted:
+    the coherence is fed above epsilon at once and the (1,1) element a few
+    ticks later."""
+    from gple_tpu_torch.entry import example_extra, example_params, example_state
+    from gple_tpu_torch.storage import fit_gp_states
+
+    density, _ = example_state(n, "cpu", generator=torch.Generator().manual_seed(3))
+    extra = example_extra(5 * n, "cpu", generator=torch.Generator().manual_seed(4))
+    active = torch.tensor([True, False, False])
+    shift = torch.tensor([9.0, 0.0], dtype=torch.float64)
+    density, extra = (c._replace(points=c.points + shift, active=active,
+                                 rho=torch.where(active[:, None, None], c.rho, 0.0))
+                      for c in (density, extra))
+    dp, op = example_params("cpu")
+    with torch.inference_mode():
+        gps = fit_gp_states(dp, op, density, block_diag=True)
+    return density, extra, gps, dp, op
+
+
+def test_tick_core_on_the_host_tuple_equals_the_full_test():
+    """Four ``_tick_core`` ticks with the host's tuple against four with
+    None (all nine pairs), at N = 64 before the crossing: the density, the
+    extra cloud and the GP states equal bit for bit (the test feeds none of
+    them) and the flags are equal; an inactive element is not small."""
+    density, extra, gps, dp, op = _before_the_crossing()
+    runs = {}
+    for active in (None, (True, False, False)):
+        state, flags = (density, extra, gps), []
+        for _ in range(4):
+            d, e, small, g = TD._tick_core("SAC", 2000.0, 1.0, *state, dp, op,
+                                           TD.gp_dist_all_nocut, "none", 0, 2.0, True, active)
+            state = (d, e, g)
+            flags.append(small.tolist())
+        runs[active] = (state, flags)
+    (full, full_flags), (read, read_flags) = runs.values()
+    assert read_flags == full_flags
+    assert not any(f[1] for f in full_flags)
+    for ours, theirs in zip(GR.leaves(read), GR.leaves(full)):
+        assert torch.equal(ours, theirs)
+
+
+@pytest.fixture(scope="module")
+def crossing_run():
+    """A crossing run at N = 24, 12 ticks, reopts every 5, whose first cloud
+    drift test re-selects the (0,0) cloud; every ``_load`` records
+    the density's and the GP states' active masks, and every tick program
+    its host tuple."""
+    import dataclasses
+
+    from gple_tpu_torch.entry import crossing_config
+
+    loads, programs, asked = [], [], []
+    load, program = TD.GPLEDriver._load, TD._tick_program
+
+    def recorded_load(self, S):
+        loads.append((self.density.active.tolist(), self.gps.active.tolist()))
+        return load(self, S)
+
+    def recorded_program(S, *args):
+        programs.append(args[-1])
+        return program(S, *args)
+
+    def drift_once(density):
+        first = not asked
+        asked.append(True)
+        return density.active & torch.tensor([first, False, False])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TD.GPLEDriver, "_load", recorded_load)
+        mp.setattr(TD, "_tick_program", recorded_program)
+        mp.setattr(TD, "_cloud_drift_flags", drift_once)
+        cfg = dataclasses.replace(crossing_config(), num_points=24, reopt_time=5.0)
+        drv = TD.GPLEDriver(cfg, device="cpu")
+        drv.run(max_ticks=12)
+    return drv, loads, programs
+
+
+def test_gp_states_carry_the_density_active_at_every_load(crossing_run):
+    """The tick graph is keyed by the host's copy of ``density.active``, and
+    the activation test masks its targets with ``gps.active``: at every
+    ``_load`` the two are equal, through activations and re-selections."""
+    drv, loads, _ = crossing_run
+    assert drv.stats["element_activations"] >= 1 and drv.stats["cloud_reselections"] >= 1
+    assert len({tuple(d) for d, _ in loads}) >= 2
+    assert all(d == g for d, g in loads), loads
+
+
+def test_small_pairs_counts_the_replays(crossing_run):
+    """``small.pairs`` in the run's totals: 2 a tick with (0,0) alone active
+    (10 ticks, no event, 20), 0 once all three are active, and over a run
+    through the activations the sum over its tick replays (a rolled-back
+    chunk's too: the device ran them)."""
+    from gple_tpu_torch.entry import trajectory_config
+
+    drv = TD.GPLEDriver(trajectory_config(16), device="cpu")
+    drv.run(max_ticks=10)
+    assert drv.totals.count("small.pairs") == 10 * 2
+    drv, _, programs = crossing_run
+    assert (True, False, False) in programs and (True, True, True) in programs
+    assert drv.totals.count("small.pairs") == sum(
+        {(True, False, False): 2, (True, True, False): 2, (True, True, True): 0}[a]
+        for a in programs)
