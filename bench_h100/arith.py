@@ -1,5 +1,6 @@
 """The benchmark's frozen arithmetic: the hand-written kernels' least times
-(bound) and the floating-point operations one tick of a trajectory needs.
+(bound), the forward kernels' and the length cotangents', and the
+floating-point operations one tick of a trajectory needs.
 
 The bounds are a copy of the port's kernel-bench formulas (H100 SXM at 700
 W): the larger of the bytes moved (each input read once, each output written
@@ -43,13 +44,54 @@ def predict_bound(batch, m, n, c, d, itemsize=8) -> tuple[float, str]:
     return _bound(moved, ops)
 
 
+def vjp_dp_per_pair(d: int, c: int = 0) -> int:
+    """A length cotangent's instructions per (row, column) pair: D
+    differences, D squares and D - 1 additions for the distance, the -1/2
+    scale, the exp, the weight times the exp, D multiply-adds into the sums,
+    and C for a rank-C weight."""
+    return (d + d + (d - 1)) + 1 + EXP_F64_DP_INSTR + 1 + d + c
+
+
+def gram_vjp_bound(batch, na, nb, d, itemsize=8) -> tuple[float, str]:
+    """(ms, what bounds it) for one ``rbf_gram_vjp``: the dense cotangent,
+    the points and the lengths read once, the (B, D) written."""
+    moved = itemsize * (batch * na * nb + batch * (na + nb) * d + 2 * batch * d)
+    ops = batch * na * nb * vjp_dp_per_pair(d) if itemsize == 8 else 0
+    return _bound(moved, ops)
+
+
+def predict_vjp_bound(batch, m, n, c, d, itemsize=8) -> tuple[float, str]:
+    """(ms, what bounds it) for one ``rbf_predict_vjp``: points, cotangent,
+    alpha and lengths read once, the (B, D) written."""
+    moved = itemsize * (batch * (m + n) * (d + c) + 2 * batch * d)
+    ops = batch * m * n * vjp_dp_per_pair(d, c) if itemsize == 8 else 0
+    return _bound(moved, ops)
+
+
+def _itemsize(dtype: str) -> int:
+    return 8 if dtype == "float64" else 4
+
+
+def _vjp_symbols(c_values) -> tuple:
+    """The device kernel ``rbf_vjp_kernel<T, D, C, VEC>`` at every type, D of
+    1 to 4 and C of ``c_values``: C = 0 is ``rbf_gram_vjp``, C >= 1
+    ``rbf_predict_vjp``."""
+    return tuple(f"rbf_vjp_kernel<{t}, {d}, {c}," for t in ("double", "float")
+                 for d in range(1, 5) for c in c_values)
+
+
 #: (kernel as counted by the port, device kernels of its launch, bound of a shape)
 KERNELS = {
     "rbf_gram": (("rbf_gram_kernel",),
-                 lambda s: gram_bound(s[0], s[1], s[2], s[3], 8 if s[4] == "float64" else 4)),
+                 lambda s: gram_bound(s[0], s[1], s[2], s[3], _itemsize(s[4]))),
     "rbf_predict_mean": (("rbf_predict_partial_kernel", "rbf_predict_reduce_kernel"),
                          lambda s: predict_bound(s[0], s[1], s[2], s[3], s[4],
-                                                 8 if s[5] == "float64" else 4)),
+                                                 _itemsize(s[5]))),
+    "rbf_gram_vjp": (_vjp_symbols((0,)),
+                     lambda s: gram_vjp_bound(s[0], s[1], s[2], s[3], _itemsize(s[4]))),
+    "rbf_predict_vjp": (_vjp_symbols((1, 2)),
+                        lambda s: predict_vjp_bound(s[0], s[1], s[2], s[3], s[4],
+                                                    _itemsize(s[5]))),
 }
 
 
@@ -112,3 +154,30 @@ def tick_flops(n: int, n_extra: int, active, reopt_freq: int) -> float:
     period = sum(2 * fit_flops(n, k) + mean_flops(n_extra, n, k) + observe_flops(n, k)
                  for k in on)
     return evolve + small + refit + period / reopt_freq
+
+
+def cutoff_tick_flops(n: int, n_extra: int, active, reopt_freq: int) -> float:
+    """:func:`tick_flops` of a trajectory that evolves with the cutoff means
+    and reoptimizes by the ladder (``reference_parity``): every evolve query
+    carries its variance, and a period's end is the refit, the extra cloud's
+    labels with their variance and the observables.  The ladder's own work
+    is :func:`ladder_eval_flops` for each loss evaluation."""
+    on = [k for k in range(3) if active[k]]
+    off = [k for k in range(3) if not active[k]]
+    evolve = sum(variance_flops(9 * n, n, k) + variance_flops(9 * n_extra, n, k) for k in on)
+    small = len(off) * sum(variance_flops(3 * 3 * n, n, k) for k in on)
+    refit = sum(fit_flops(n, k) + observe_flops(n, k) for k in on)
+    period = sum(fit_flops(n, k) + variance_flops(n_extra, n, k) + observe_flops(n, k)
+                 for k in on)
+    return evolve + small + refit + period / reopt_freq
+
+
+def ladder_eval_flops(n: int, n_extra: int, active) -> float:
+    """One value and gradient of the ladder's loss and constraints: for each
+    active diagonal element the unit-magnitude fit, the leave-one-out error
+    (2n), the mean at its n_extra extra points and the population and purity
+    integrals; the gradient by reverse mode at twice the forward's
+    operations."""
+    forward = sum(fit_flops(n, k) + 2.0 * n + mean_flops(n_extra, n, k) + observe_flops(n, k)
+                  for k in (0, 2) if active[k])
+    return 3.0 * forward

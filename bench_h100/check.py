@@ -23,6 +23,21 @@ span:
 * the program's decisions that no element appeared and no cloud was
   re-selected, as the reference's ratios to the thresholds, below 1.
 
+The period-end step follows the configuration's optimizer
+(``cfg.opt_mode``).  With ``"moment"`` the reference reoptimizes by moments
+and compares its parameters with the program's.  With ``"ladder"`` (the
+constrained restart ladder of ``reference_parity``) it takes the program's
+new parameters and holds the ladder that chose them to
+:mod:`bench_h100.reference.ladder` on the state the ladder saw, the extra
+cloud the reference followed with the points included: the reported error
+and averages of the accepted stage (``ladder_gap``), the magnitudes
+(``param_gap``), the stationarity of loss + lam . c with the program's
+multipliers (``kkt``: the median over the ladders the run compares) and each
+stage's 5% acceptance (``decisions``); then
+it refits with those parameters, checks the regenerated extra cloud's labels
+(``state_gap``) and follows on.  The initialization's ladder is held to the
+same at tick 0.
+
 A chunked pair is skipped where the program recorded an event inside the
 period (an element appearing, a conservation-drift reoptimization), whose
 draws the reference cannot follow; a fused segment that met an event was
@@ -32,12 +47,14 @@ from __future__ import annotations
 
 import math
 import os
+import statistics
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from bench_h100.reference import follow as F
+from bench_h100.reference import ladder as L
 
 #: floor of the scale a gap is taken against
 FLOOR = 1e-3
@@ -58,12 +75,16 @@ class Snap(NamedTuple):
     params: tuple          # host copies of the optimizer's parameters
     div: float             # the coherence length divisor in force
     record: object
+    stages: tuple = ()     # the ladder's stages that chose ``params`` (host dicts)
+
+
+def _tensor(v, dtype, device):
+    """A host value of the program's as a tensor of ``dtype`` on ``device``."""
+    return torch.as_tensor(np.asarray(v, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
 def params_of(snap: Snap, dtype, device) -> F.Params:
-    dl, dm, off, om = snap.params
-    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64)).to(device=device, dtype=dtype)
-    return F.Params(t(dl), t(dm), t(off), t(om))
+    return F.Params(*(_tensor(v, dtype, device) for v in snap.params))
 
 
 def valid_states(snaps):
@@ -137,6 +158,8 @@ class Outcome:
     def __init__(self):
         self.values = dict(obs_gap=0.0, state_gap=0.0, param_gap=0.0, decisions=0.0, pairs=0)
         self.notes = []
+        #: each compared ladder's stationarity (:func:`check_ladder`)
+        self.stationarity = []
 
     def worst(self, name: str, value: float):
         v = float(value)
@@ -147,23 +170,82 @@ def _cast(t, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
-def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=None):
+def _cutoff(cfg) -> bool:
+    """Whether the evolve (and the labels it gives) uses the cutoff means."""
+    if cfg.evolve_cutoff not in (False, True):
+        raise ValueError(f"the reference has no evolve_cutoff={cfg.evolve_cutoff!r}")
+    return cfg.evolve_cutoff
+
+
+def _ladder_reading(rel: float, accepted: bool) -> float:
+    """A stage's 5% rule as a ratio below 1 where the reference agrees: its
+    largest violation over the tolerance for a stage the program accepted,
+    the tolerance over it for one the program rejected."""
+    return rel / L.TOLERANCE if accepted else L.TOLERANCE / max(rel, 1e-300)
+
+
+def check_ladder(cfg, s: Snap, pts, rho, act, extra, goal, out: Outcome, dtype, device,
+                 program=None):
+    """The ladder whose result ``s`` holds, on the state (``pts``, ``rho``, the
+    extra cloud ``extra``) it optimized over, against the targets ``goal``
+    (or, for the control, against ``program``: the same readings in float64).
+    Returns the readings the control is held to."""
+    if act[1]:
+        raise ValueError("the ladder check has no coupled (2N, 2N) coherence fit: a "
+                         "ladder with an active coherence needs one in the reference")
+    prob = L.problem(cfg.model, cfg.mass, pts, rho, act, extra[0], extra[1], goal)
+    rows = list(prob.surfaces)
+    t = lambda v: _tensor(v, dtype, device)
+    stages = [torch.cat([loss[None], avgs]) for loss, avgs in
+              (L.evaluate(t(st["diag_lengths"])[rows], prob) for st in s.stages)]
+    acc = [i for i, st in enumerate(s.stages) if st["accepted"]][-1]
+    lengths = t(s.params[0])[rows]
+    rel = [float(torch.max(L.violations(v[1:], prob))) for v in stages]
+    stages = [v.detach().double().cpu().numpy() for v in stages]
+    res = dict(stages=stages, mags=L.magnitudes(lengths, prob.x, prob.y), rel=rel)
+    kkt = L.kkt(lengths, t(s.stages[acc]["lam"][0][:3]), prob)
+    out.stationarity.append(kkt)
+    out.notes.append(f"ladder at tick {s.tick}: stages "
+                     f"{'/'.join(st['tag'] for st in s.stages)}, took {s.stages[acc]['tag']}: "
+                     f"stationarity {kkt:.3g}, largest violation {rel[acc]:.3g}")
+    if program is None:
+        st = s.stages[acc]
+        out.worst("ladder_gap", gap([st["error"], *st["averages"]], stages[acc]))
+        out.worst("param_gap", array_gap(t(s.params[1])[rows], res["mags"]))
+        for st, r in zip(s.stages, rel):
+            out.worst("decisions", _ladder_reading(r, not np.any(st["check"])))
+    else:
+        out.worst("ladder_gap", gap(stages[acc], program["stages"][acc]))
+        out.worst("param_gap", array_gap(res["mags"], program["mags"]))
+        for r_ctl, r_ref in zip(rel, program["rel"]):
+            out.worst("decisions", _ladder_reading(r_ref, r_ctl < L.TOLERANCE))
+    return res
+
+
+def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=None,
+              goal=None):
     """The reference from ``a`` over the periods up to each of ``bs`` against
     its record, and at the last the state and parameters (or, for the
-    control, against ``program``: the same outputs computed another way)."""
+    control, against ``program``: the same outputs computed another way).
+    A ladder cell's period ends are held to the ladder's targets ``goal``."""
+    ladder = cfg.opt_mode == "ladder"
     pts = _cast(a.density.points, dtype, device)
     rho = _cast(a.density.rho, dtype, device)
     act = tuple(bool(v) for v in a.density.active.cpu())
     params = params_of(a, dtype, device)
-    res = dict(obs=[])
+    extra = ((_cast(a.extra.points, dtype, device), _cast(a.extra.rho, dtype, device))
+             if ladder else None)
+    res = dict(obs=[], ladder=[], labels=[])
     for b in bs:
-        pts, rho, before, ratios = F.follow(cfg.model, cfg.mass, cfg.dt, pts, rho, act,
-                                            params, cfg.reopt_freq)
+        pts, rho, before, ratios, extra = F.follow(cfg.model, cfg.mass, cfg.dt, pts, rho,
+                                                   act, params, cfg.reopt_freq,
+                                                   _cutoff(cfg), extra)
         if bool((ratios >= 1.0).any()) and kind == "chunked":
             out.notes.append(f"pair {a.tick}->{b.tick}: an element appears; skipped")
             return None
         out.worst("decisions", float(ratios.max()))
         drift = F.drift_ratios(pts, rho, act) if cfg.track_clouds else torch.zeros(3)
+        reselected = False
         if kind == "chunked":
             bp = _cast(b.density.points, dtype, device)
             br = _cast(b.density.rho, dtype, device)
@@ -173,7 +255,9 @@ def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=
                 if act[k] and moved > 1e-6 * (1.0 + float(torch.max(torch.abs(pts[k])))):
                     # the program re-selected this cloud: its labels at its points
                     out.worst("decisions", 1.0 / max(float(drift[k]), 1e-300))
-                    ref_lab = F.relabel(cfg.model, cfg.mass, cfg.dt, bp[k], k, before)
+                    reselected = True
+                    ref_lab = F.relabel(cfg.model, cfg.mass, cfg.dt, bp[k], k, before,
+                                        _cutoff(cfg))
                     out.worst("state_gap", array_gap(br[k], ref_lab) if program is None
                               else 0.0)
                     res[f"relabel{k}"] = ref_lab
@@ -187,16 +271,41 @@ def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=
             pts, rho = post_pts, post_rho
         else:
             out.worst("decisions", float(drift.max()))
-        params = F.moment(pts, rho, act, params, b.div)
+        if not ladder:
+            params = F.moment(pts, rho, act, params, b.div)
+        elif reselected:
+            # the re-selection walked the extra cloud too, which the reference
+            # does not follow
+            out.notes.append(f"pair {a.tick}->{b.tick}: a cloud was re-selected; "
+                             "its ladder is not compared")
+            params = params_of(b, dtype, device)
+        else:
+            prog = None if program is None else program["ladder"][len(res["ladder"])]
+            lad = check_ladder(cfg, b, pts, rho, act, extra, goal, out, dtype, device, prog)
+            res["ladder"].append(lad)
+            params = params_of(b, dtype, device)
         fits = F.fit(params, pts, rho, act)
         res["obs"].append(obs_values(F.observe(cfg.model, cfg.mass, pts, rho, act, fits)))
+        if ladder:
+            # the extra cloud the period end regenerated: the program's
+            # points, labeled by the new fit
+            e_pts = _cast(b.extra.points, dtype, device)
+            labels = F.dist(fits, _cutoff(cfg))(e_pts)
+            prog_labels = (_cast(b.extra.rho, dtype, device) if program is None
+                           else program["labels"][len(res["labels"])])
+            for k in range(3):
+                if act[k]:
+                    out.worst("state_gap", array_gap(prog_labels[k], labels[k]))
+            res["labels"].append(labels)
+            extra = (e_pts, labels)
     res.update(pts=pts, rho=rho, params=torch.cat([p.reshape(-1) for p in params]))
     last = bs[-1]
     if program is None:
         for b, obs in zip(bs, res["obs"]):
             out.worst("obs_gap", gap(record_values(b.record), obs))
-        prog = torch.cat([p.reshape(-1) for p in params_of(last, torch.float64, device)])
-        out.worst("param_gap", array_gap(prog, res["params"]))
+        if not ladder:
+            prog = torch.cat([p.reshape(-1) for p in params_of(last, torch.float64, device)])
+            out.worst("param_gap", array_gap(prog, res["params"]))
         if kind == "segment":
             # the segment's end state, with no cloud re-selected inside it
             out.worst("state_gap", array_gap(last.density.points, pts))
@@ -209,26 +318,35 @@ def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=
                 out.worst("state_gap", array_gap(res[f"relabel{k}"], program[f"relabel{k}"]))
         out.worst("state_gap", array_gap(res["pts"], program["pts"]))
         out.worst("state_gap", array_gap(res["rho"], program["rho"]))
-        out.worst("param_gap", array_gap(res["params"], program["params"]))
+        if not ladder:
+            out.worst("param_gap", array_gap(res["params"], program["params"]))
     out.values["pairs"] += 1
     return res
 
 
 def check_end(cfg, s: Snap, out: Outcome, dtype, device, program=None, outdir=None):
-    """The span's last state: its moment parameters, its record's observables
-    from the reference's fit, the extra cloud's labels, the written averages."""
+    """The span's last state: its moment parameters (a ladder cell's: its
+    magnitudes at its lengths), its record's observables from the
+    reference's fit, the extra cloud's labels, the written averages."""
+    ladder = cfg.opt_mode == "ladder"
     pts = _cast(s.density.points, dtype, device)
     rho = _cast(s.density.rho, dtype, device)
     act = tuple(bool(v) for v in s.density.active.cpu())
-    new = F.moment(pts, rho, act, params_of(s, dtype, device), s.div)
+    new = (params_of(s, dtype, device) if ladder
+           else F.moment(pts, rho, act, params_of(s, dtype, device), s.div))
     fits = F.fit(new, pts, rho, act)
     obs = F.observe(cfg.model, cfg.mass, pts, rho, act, fits)
     e_pts = _cast(s.extra.points, dtype, device)
-    labels = F.dist(fits, False)(e_pts)
+    labels = F.dist(fits, _cutoff(cfg))(e_pts)
     res = dict(params=torch.cat([p.reshape(-1) for p in new]), obs=obs_values(obs),
                labels=labels, written=F.written_row(cfg.model, cfg.mass, pts, rho, act, fits))
+    if ladder:
+        rows = [d for d, k in enumerate(F.DIAG) if act[k]]
+        res["params"] = L.magnitudes(new.diag_lengths[rows], [pts[F.DIAG[d]] for d in rows],
+                                     [rho[F.DIAG[d], :, 0] for d in rows])
     if program is None:
-        prog = torch.cat([p.reshape(-1) for p in params_of(s, torch.float64, device)])
+        prog = params_of(s, torch.float64, device)
+        prog = prog.diag_mags[rows] if ladder else torch.cat([p.reshape(-1) for p in prog])
         out.worst("param_gap", array_gap(prog, res["params"]))
         out.worst("obs_gap", gap(record_values(s.record), res["obs"]))
         for k in range(3):
@@ -267,6 +385,25 @@ def choose_runs(runs, seed: int):
     return [runs[i] for i in rest] + [runs[-1]]
 
 
+def goal_of(cfg, first: Snap, dtype, device):
+    """The ladder's targets (1, E0, P0) from the state at tick 0."""
+    if first.tick != 0:
+        raise ValueError("the ladder's targets are taken from the record of tick 0")
+    return L.targets(cfg.model, cfg.mass, cfg.initial_population,
+                     _cast(first.density.points, dtype, device),
+                     _cast(first.density.rho, dtype, device))
+
+
+def check_init(cfg, s: Snap, out: Outcome, dtype, device, program=None):
+    """The initialization's ladder, on the state at tick 0 that it optimized
+    over: the points and the extra cloud drawn from the initial distribution."""
+    act = tuple(bool(v) for v in s.density.active.cpu())
+    pts, rho = _cast(s.density.points, dtype, device), _cast(s.density.rho, dtype, device)
+    extra = (_cast(s.extra.points, dtype, device), _cast(s.extra.rho, dtype, device))
+    return check_ladder(cfg, s, pts, rho, act, extra, goal_of(cfg, s, dtype, device), out,
+                        dtype, device, program)
+
+
 def evaluate(cfg, snaps, events, seed: int, device, outdir: Optional[str] = None,
              control_dtype=None) -> Outcome:
     """The outcome of one span's snaps; with ``control_dtype`` the control:
@@ -277,14 +414,29 @@ def evaluate(cfg, snaps, events, seed: int, device, outdir: Optional[str] = None
         out.values["written_gap"] = 0.0
     if cfg.output_freq != cfg.reopt_freq:
         raise ValueError("the check pairs outputs one reoptimization period apart")
+    ladder = cfg.opt_mode == "ladder"
+    if ladder:
+        out.values.update(ladder_gap=0.0)
+        if control_dtype is None:
+            check_init(cfg, snaps[0], out, torch.float64, device)
+        else:
+            ref = check_init(cfg, snaps[0], Outcome(), torch.float64, device)
+            check_init(cfg, snaps[0], out, control_dtype, device, program=ref)
+    goal = goal_of(cfg, snaps[0], torch.float64, device) if ladder else None
     for i, j, kind in choose_runs(runs_of(snaps, events, cfg.reopt_freq), seed):
         a, bs = snaps[i], snaps[i + 1:j + 1]
         if control_dtype is None:
-            check_run(cfg, a, bs, kind, out, torch.float64, device)
+            check_run(cfg, a, bs, kind, out, torch.float64, device, goal=goal)
         else:
-            ref = check_run(cfg, a, bs, kind, Outcome(), torch.float64, device)
+            ref = check_run(cfg, a, bs, kind, Outcome(), torch.float64, device, goal=goal)
             if ref is not None:
-                check_run(cfg, a, bs, kind, out, control_dtype, device, program=ref)
+                check_run(cfg, a, bs, kind, out, control_dtype, device, program=ref,
+                          goal=goal_of(cfg, snaps[0], control_dtype, device) if ladder
+                          else None)
+    if ladder:
+        # the zoom L-BFGS may stop short of stationarity on one ladder of a
+        # span (its line search fails): the run's median ladder is compared
+        out.values["kkt"] = statistics.median(out.stationarity)
     last = [s for s, ok in zip(snaps, valid_states(snaps)) if ok][-1]
     if control_dtype is None:
         check_end(cfg, last, out, torch.float64, device, outdir=outdir)

@@ -53,7 +53,7 @@ def readings(manifest: dict, workload: str, seeds, control_seeds, device: str,
             if seed in control_seeds:
                 ctl = CH.evaluate(cfg, span["snaps"], span["events"], seed, device,
                                   outdir=span["outdir"], control_dtype=torch.float32)
-                row["control"] = ctl.values
+                row.update(control=ctl.values, control_notes=ctl.notes)
             if span["outdir"]:
                 shutil.rmtree(span["outdir"], ignore_errors=True)
             del span

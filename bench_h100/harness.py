@@ -47,6 +47,8 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 #: top-level module names no process of the benchmark may hold
 FORBIDDEN = ("jax", "jaxlib", "flax", "gple_tpu")
+#: the ladder's zoom counters, ``zoom.<name>`` in the program's totals
+ZOOM_COUNTERS = ("solves", "iterations", "evaluations", "syncs")
 
 
 class WindowClosed(Exception):
@@ -119,9 +121,10 @@ class Cell:
 
 class Recorder:
     """The span's callback: at each output, the state the driver holds
-    (:class:`check.Snap`); past the deadline it stops the span.  The record
-    of tick 0, which the driver makes after its initialization and passes to
-    no callback, is kept too."""
+    (:class:`check.Snap`, with the stages of the ladder that chose its
+    parameters); past the deadline it stops the span.  The record of tick 0,
+    which the driver makes after its initialization and passes to no
+    callback, is kept too."""
 
     def __init__(self, drv, deadline: float):
         self.drv, self.deadline, self.snaps = drv, deadline, []
@@ -147,7 +150,17 @@ class Recorder:
             params=(np.array(o.diag_lengths, dtype=np.float64),
                     np.array(o.diag_magnitudes, dtype=np.float64),
                     np.array(o.off_params, dtype=np.float64), float(o.off_magnitude)),
-            div=float(d._coh_div_eff), record=rec))
+            div=float(d._coh_div_eff), record=rec, stages=ladder_stages(o)))
+
+
+def ladder_stages(o) -> tuple:
+    """The stages of the optimizer's last ladder (none for the moment
+    optimizer): tag, error, averages, multipliers, lengths, the 5% rule's
+    checks, and whether the optimizer took the stage's parameters."""
+    return tuple(dict(tag=st["tag"], error=st["error"], averages=st["averages"],
+                      lam=st["lam"], diag_lengths=st["diag_lengths"], check=st["check"],
+                      accepted=st["diag_lengths"] is o.diag_lengths)
+                 for st in getattr(o, "stages", ()))
 
 
 def _sync(device):
@@ -176,7 +189,8 @@ def run_span(cell: Cell, cfg, device, deadline: float, outroot: Path, index: int
     out = dict(cfg=cfg, ticks=int(round(drv.history[-1].time / cfg.dt)),
                phase_times=dict(drv.phase_times), snaps=rec.snaps,
                events=set(int(t) for t in drv._event_ticks), stats=dict(drv.stats),
-               outdir=outdir)
+               outdir=outdir, stage_s=drv.totals.seconds("stage"),
+               zoom={k: drv.totals.count("zoom." + k) for k in ZOOM_COUNTERS})
     # the span frees its driver (graphs, pools) itself, so that no span pays
     # for another's at a point the collector picks
     del drv, rec
@@ -300,6 +314,8 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
         t_reduce = time.perf_counter()
         ctx = dict(cfg=cfg, traffic=cell.traffic, window_s=window_s, ticks=ticks,
                    spans=len(spans), phase_times=phase, launches=launches,
+                   stage_s=sum(s["stage_s"] for s in spans),
+                   zoom={k: sum(s["zoom"][k] for s in spans) for k in ZOOM_COUNTERS},
                    trace=TR.reduce(tracer) if tracer else None)
         marks.append(("trace_reduce_s", time.perf_counter() - t_reduce))
         section = "per_layer" if trace else "end_to_end"

@@ -1,0 +1,9 @@
+"""``rbf_gram_vjp_roofline``: ``rbf_gram_vjp``'s share of its roofline
+(:func:`bench_h100.roofline.share`): the Gram's length cotangent of the
+ladder's gradients."""
+
+from bench_h100 import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "rbf_gram_vjp")

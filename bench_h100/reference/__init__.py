@@ -5,7 +5,9 @@ It imports nothing of the program.  The formulas are those of the program's
 plain route (the Tully models, the 17-step backward-branching evolver, the
 block-diagonal real and complex GP fits, the moment reoptimization and the
 observables), written again from the equations: the complex fit as its two
-independent real systems, the inverses through ``cholesky_inverse``.  It
-covers the settings the benchmark's cells run: the moment optimizer, the
-block-diagonal coherence fit (corr = 0), raw-mean evolution, no booster.
+independent real systems, the inverses through ``cholesky_inverse``; and
+the constrained ladder's loss, averages, constraints and gradients
+(:mod:`.ladder`).  It covers the settings the benchmark's cells run: the
+moment optimizer and the ladder's diagonal passes, the block-diagonal
+coherence fit (corr = 0), raw-mean and cutoff evolution, no booster.
 """

@@ -44,7 +44,9 @@ def fit(params: Params, points, rho, active) -> Fits:
     if active[1]:
         o = params.off
         if float(o[6]) != 0.0:
-            raise ValueError("the reference fits the block-diagonal coherence (corr = 0) only")
+            raise ValueError("the reference has no coupled (2N, 2N) coherence fit, which an "
+                             "active coherence with corr != 0 needs; it fits the "
+                             "block-diagonal one (corr = 0) only")
         off = GP.fit_complex(params.off_mag, o[0], o[1:3], o[3], o[4:6], points[1], rho[1])
     return Fits(diag, off, tuple(active))
 
@@ -141,28 +143,36 @@ def drift_ratios(points, rho, active):
 
 
 def follow(model: str, mass: float, dt: float, points, rho, active, params: Params,
-           ticks: int):
-    """``ticks`` ticks from a state just after a fit with ``params``.  Returns
-    the state after them, the fit of the state one tick before the last
-    (:func:`fit` of it), and each tick's activation ratios (ticks, 3)."""
+           ticks: int, cutoff: bool = False, extra=None):
+    """``ticks`` ticks from a state just after a fit with ``params``, each
+    evolving with the raw means or, with ``cutoff``, the cutoff means (the
+    extra cloud ``extra = (points, rho)``, if given, with them).  Returns the
+    state after them, the fit of the state one tick before the last
+    (:func:`fit` of it), each tick's activation ratios (ticks, 3) and the
+    extra cloud after them (None without one)."""
     fits = fit(params, points, rho, active)
     inactive = [k for k in range(3) if not active[k]]
     ratios, before = [], fits
     for _ in range(ticks):
-        new_points, new_rho = EV.evolve(model, mass, dt, points, rho, dist(fits, False))
+        moved = dist(fits, cutoff)
+        new_points, new_rho = EV.evolve(model, mass, dt, points, rho, moved)
+        if extra is not None:
+            extra = EV.evolve(model, mass, dt, extra[0], extra[1], moved)
         r = torch.zeros(3, dtype=points.dtype, device=points.device)
         if inactive:
             r = EV.small_ratios(model, mass, dt, new_points, active, dist(fits, True))
         ratios.append(torch.where(torch.tensor(active, device=r.device), 0.0, r))
         before, points, rho = fits, new_points, new_rho
         fits = fit(params, points, rho, active)
-    return points, rho, before, torch.stack(ratios)
+    return points, rho, before, torch.stack(ratios), extra
 
 
-def relabel(model: str, mass: float, dt: float, pts, elem: int, fits: Fits):
+def relabel(model: str, mass: float, dt: float, pts, elem: int, fits: Fits,
+            cutoff: bool = False):
     """The density of a re-selected element at its new points (M, 2): the
-    backward prediction with the raw-mean distribution of ``fits``."""
-    return EV.backward(model, mass, dt, pts, elem, dist(fits, False))
+    backward prediction with the raw-mean (or, with ``cutoff``, the cutoff)
+    distribution of ``fits``."""
+    return EV.backward(model, mass, dt, pts, elem, dist(fits, cutoff))
 
 
 def written_row(model: str, mass: float, points, rho, active, fits: Fits) -> dict:

@@ -54,6 +54,60 @@ def test_trace_readers():
         100 * 50 * pred_ms / 1e3 / 4e-3)
 
 
+def test_vjp_roofline_readers():
+    trace = dict(busy_s=30.0, window_s=45.0, kernel_s={
+        "void rbf_vjp_kernel<double, 2, 0, true>(double const*, double const*)": 2e-3,
+        "void rbf_vjp_kernel<double, 2, 1, false>(double const*, double const*)": 6e-3,
+        "void rbf_gram_kernel<double, 4>(...)": 1.0})
+    launches = {("rbf_gram_vjp", (2, 1024, 1024, 2, "float64")): 200,
+                ("rbf_predict_vjp", (2, 5120, 1024, 1, 2, "float64")): 100,
+                ("rbf_gram", (2, 1024, 1024, 2, "float64")): 7}
+    ctx = _ctx(trace=trace, launches=launches)
+    gram_ms = arith.gram_vjp_bound(2, 1024, 1024, 2)[0]
+    assert H.load_reader("rbf_gram_vjp_roofline").read(ctx) == pytest.approx(
+        100 * 200 * gram_ms / 1e3 / 2e-3)
+    pred_ms = arith.predict_vjp_bound(2, 5120, 1024, 1, 2)[0]
+    assert H.load_reader("rbf_predict_vjp_roofline").read(ctx) == pytest.approx(
+        100 * 100 * pred_ms / 1e3 / 6e-3)
+    for name in ("rbf_gram_vjp_roofline", "rbf_predict_vjp_roofline"):
+        assert H.load_reader(name).read(_ctx()) is None
+        assert H.load_reader(name).read(_ctx(trace=trace, launches={})) is None
+
+
+@pytest.mark.parametrize("name,want", [("ladder_eval_ms", 1e3 * 6.0 / 300),
+                                       ("zoom_syncs_per_iter", 297 / 100)])
+def test_ladder_readers(name, want):
+    zoom = dict(solves=10, iterations=100, evaluations=300, syncs=297)
+    assert H.load_reader(name).read(_ctx(stage_s=6.0, zoom=zoom)) == pytest.approx(want)
+    # no ladder ran: nothing to read
+    none = dict(solves=0, iterations=0, evaluations=0, syncs=0)
+    assert H.load_reader(name).read(_ctx(stage_s=0.0, zoom=none)) is None
+
+
+def test_ladder_mfu_reader():
+    zoom = dict(solves=10, iterations=100, evaluations=300, syncs=297)
+    flops = (arith.cutoff_tick_flops(1024, 5120, (True, False, False), 10) * 600
+             + arith.ladder_eval_flops(1024, 5120, (True, False, False)) * 300)
+    got = H.load_reader("ladder_mfu").read(_ctx(stage_s=6.0, zoom=zoom))
+    assert got == pytest.approx(100 * flops / (40.0 * 67e12))
+    none = dict(solves=0, iterations=0, evaluations=0, syncs=0)
+    assert H.load_reader("ladder_mfu").read(_ctx(stage_s=0.0, zoom=none)) is None
+
+
+def test_cutoff_tick_and_ladder_flops_at_n1024():
+    n, ne = 1024, 5120
+    e0, e1 = 4 * 2 + 2, 4 * 2 + 2 + 2
+    var = lambda m: m * n * e1 + 2.0 * m * n * n + 2.0 * m * n
+    fit = n * n * e0 + n ** 3 + 10.0 * n * n
+    obs = n * n * e0 + 2.0 * n * n + 10.0 * n
+    tick = var(9 * n) + var(9 * ne) + 2 * var(9 * n) + fit + obs + (fit + var(ne) + obs) / 10
+    assert arith.cutoff_tick_flops(n, ne, (True, False, False), 10) == pytest.approx(tick)
+    forward = fit + 2.0 * n + ne * n * e1 + obs
+    assert arith.ladder_eval_flops(n, ne, (True, False, False)) == pytest.approx(3 * forward)
+    # the cutoff evolve's variance outweighs the raw means' tick four times over
+    assert tick > 3.5 * arith.tick_flops(n, ne, (True, False, False), 10)
+
+
 def test_trace_readers_find_nothing_untraced():
     for name in ("device_idle_pct", "rbf_gram_roofline", "rbf_predict_roofline"):
         assert H.load_reader(name).read(_ctx()) is None
@@ -70,6 +124,15 @@ def test_bounds_pinned_to_the_kernel_table():
     assert arith.predict_bound(3, 51200, 1024, 2, 2)[0] * 1e3 == pytest.approx(203.55, abs=0.005)
     assert arith.gram_bound(5, 1024, 1024, 2)[1] == "bytes"
     assert arith.predict_bound(2, 10240, 1024, 1, 2)[1] == "operations"
+    # the backward kernels' table: the ladder's length cotangents
+    assert arith.gram_vjp_bound(2, 1024, 1024, 2)[0] * 1e3 == pytest.approx(5.03, abs=0.005)
+    assert arith.gram_vjp_bound(5, 1024, 1024, 2)[0] * 1e3 == pytest.approx(12.57, abs=0.005)
+    assert arith.predict_vjp_bound(2, 5120, 1024, 1, 2)[0] * 1e3 == pytest.approx(15.42,
+                                                                                 abs=0.005)
+    assert arith.predict_vjp_bound(3, 5120, 1024, 2, 2)[0] * 1e3 == pytest.approx(24.06,
+                                                                                 abs=0.005)
+    assert arith.gram_vjp_bound(2, 1024, 1024, 2)[1] == "bytes"
+    assert arith.predict_vjp_bound(2, 5120, 1024, 1, 2)[1] == "operations"
 
 
 def test_tick_flops_terms_at_n1024():
