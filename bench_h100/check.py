@@ -32,10 +32,13 @@ new parameters and holds the ladder that chose them to
 cloud the reference followed with the points included: the reported error
 and averages of the accepted stage (``ladder_gap``), the magnitudes
 (``param_gap``), the stationarity of loss + lam . c with the program's
-multipliers (``kkt``: the median over the ladders the run compares) and each
-stage's 5% acceptance (``decisions``); then
-it refits with those parameters, checks the regenerated extra cloud's labels
-(``state_gap``) and follows on.  The initialization's ladder is held to the
+multipliers (``kkt``: the median over the diagonal passes the run compares;
+``kkt_full``: over the full passes) and each stage's 5% acceptance
+(``decisions``); with the coherence active the ladder's result is its full
+pass's (the coherence's parameters with the lengths, the coupled fit's
+errors and purity, the full pass's multipliers, the coherence's magnitude
+too); then it refits with those parameters, checks the regenerated extra
+cloud's labels (``state_gap``) and follows on.  The initialization's ladder is held to the
 same at tick 0.
 
 A chunked pair is skipped where the program recorded an event inside the
@@ -53,6 +56,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from bench_h100.reference import coupled as CP
 from bench_h100.reference import follow as F
 from bench_h100.reference import ladder as L
 
@@ -158,8 +162,10 @@ class Outcome:
     def __init__(self):
         self.values = dict(obs_gap=0.0, state_gap=0.0, param_gap=0.0, decisions=0.0, pairs=0)
         self.notes = []
-        #: each compared ladder's stationarity (:func:`check_ladder`)
+        #: each compared ladder's stationarity (:func:`check_ladder`): the
+        #: diagonal passes', and the full passes' (the coherence active)
         self.stationarity = []
+        self.stationarity_full = []
 
     def worst(self, name: str, value: float):
         v = float(value)
@@ -189,34 +195,45 @@ def check_ladder(cfg, s: Snap, pts, rho, act, extra, goal, out: Outcome, dtype, 
     """The ladder whose result ``s`` holds, on the state (``pts``, ``rho``, the
     extra cloud ``extra``) it optimized over, against the targets ``goal``
     (or, for the control, against ``program``: the same readings in float64).
-    Returns the readings the control is held to."""
-    if act[1]:
-        raise ValueError("the ladder check has no coupled (2N, 2N) coherence fit: a "
-                         "ladder with an active coherence needs one in the reference")
+    With the coherence active the ladder's result is its full pass's: the
+    lengths and the coherence's parameters, the joint error, the averages
+    with the coherence's purity, the magnitudes with the coherence's, and the
+    full pass's multipliers (row 1 of a stage's).  Returns the readings the
+    control is held to."""
     prob = L.problem(cfg.model, cfg.mass, pts, rho, act, extra[0], extra[1], goal)
     rows = list(prob.surfaces)
+    full = prob.xo is not None
     t = lambda v: _tensor(v, dtype, device)
+    off_of = lambda v: t(v) if full else None
     stages = [torch.cat([loss[None], avgs]) for loss, avgs in
-              (L.evaluate(t(st["diag_lengths"])[rows], prob) for st in s.stages)]
+              (L.evaluate(t(st["diag_lengths"])[rows], prob, off_of(st["off_params"]))
+               for st in s.stages)]
     acc = [i for i, st in enumerate(s.stages) if st["accepted"]][-1]
-    lengths = t(s.params[0])[rows]
+    lengths, off = t(s.params[0])[rows], off_of(s.params[2])
     rel = [float(torch.max(L.violations(v[1:], prob))) for v in stages]
     stages = [v.detach().double().cpu().numpy() for v in stages]
-    res = dict(stages=stages, mags=L.magnitudes(lengths, prob.x, prob.y), rel=rel)
-    kkt = L.kkt(lengths, t(s.stages[acc]["lam"][0][:3]), prob)
-    out.stationarity.append(kkt)
+    mags = [L.magnitudes(lengths, prob.x, prob.y)]
+    if full:
+        mags.append(CP.magnitude(L.coherence_fit(off, prob))[None])
+    res = dict(stages=stages, mags=mags, rel=rel)
+    kkt = L.kkt(lengths, t(s.stages[acc]["lam"][1 if full else 0][:3]), prob, off)
+    (out.stationarity_full if full else out.stationarity).append(kkt)
     out.notes.append(f"ladder at tick {s.tick}: stages "
-                     f"{'/'.join(st['tag'] for st in s.stages)}, took {s.stages[acc]['tag']}: "
-                     f"stationarity {kkt:.3g}, largest violation {rel[acc]:.3g}")
+                     f"{'/'.join(st['tag'] for st in s.stages)}, took {s.stages[acc]['tag']}"
+                     f"{' (full pass)' if full else ''}: stationarity {kkt:.3g}, largest "
+                     f"violation {rel[acc]:.3g}")
     if program is None:
         st = s.stages[acc]
         out.worst("ladder_gap", gap([st["error"], *st["averages"]], stages[acc]))
-        out.worst("param_gap", array_gap(t(s.params[1])[rows], res["mags"]))
+        prog = [t(s.params[1])[rows], t(s.params[3])[None]]
+        for p, m in zip(prog, mags):
+            out.worst("param_gap", array_gap(p, m))
         for st, r in zip(s.stages, rel):
             out.worst("decisions", _ladder_reading(r, not np.any(st["check"])))
     else:
         out.worst("ladder_gap", gap(stages[acc], program["stages"][acc]))
-        out.worst("param_gap", array_gap(res["mags"], program["mags"]))
+        for m, p in zip(mags, program["mags"]):
+            out.worst("param_gap", array_gap(m, p))
         for r_ctl, r_ref in zip(rel, program["rel"]):
             out.worst("decisions", _ladder_reading(r_ref, r_ctl < L.TOLERANCE))
     return res
@@ -326,8 +343,9 @@ def check_run(cfg, a: Snap, bs, kind: str, out: Outcome, dtype, device, program=
 
 def check_end(cfg, s: Snap, out: Outcome, dtype, device, program=None, outdir=None):
     """The span's last state: its moment parameters (a ladder cell's: its
-    magnitudes at its lengths), its record's observables from the
-    reference's fit, the extra cloud's labels, the written averages."""
+    magnitudes at its lengths, the coherence's at its parameters), its
+    record's observables from the reference's fit, the extra cloud's labels,
+    the written averages."""
     ladder = cfg.opt_mode == "ladder"
     pts = _cast(s.density.points, dtype, device)
     rho = _cast(s.density.rho, dtype, device)
@@ -344,8 +362,13 @@ def check_end(cfg, s: Snap, out: Outcome, dtype, device, program=None, outdir=No
         rows = [d for d, k in enumerate(F.DIAG) if act[k]]
         res["params"] = L.magnitudes(new.diag_lengths[rows], [pts[F.DIAG[d]] for d in rows],
                                      [rho[F.DIAG[d], :, 0] for d in rows])
+        if act[1]:
+            one = torch.ones((), dtype=dtype, device=device)
+            res["off_mag"] = CP.magnitude(CP.fit(one, new.off, pts[1], rho[1]))[None]
     if program is None:
         prog = params_of(s, torch.float64, device)
+        if "off_mag" in res:
+            out.worst("param_gap", array_gap(prog.off_mag[None], res["off_mag"]))
         prog = prog.diag_mags[rows] if ladder else torch.cat([p.reshape(-1) for p in prog])
         out.worst("param_gap", array_gap(prog, res["params"]))
         out.worst("obs_gap", gap(record_values(s.record), res["obs"]))
@@ -356,6 +379,8 @@ def check_end(cfg, s: Snap, out: Outcome, dtype, device, program=None, outdir=No
             out.worst("written_gap", written_gap(outdir, res["written"]))
     else:
         out.worst("param_gap", array_gap(res["params"], program["params"]))
+        if "off_mag" in res:
+            out.worst("param_gap", array_gap(res["off_mag"], program["off_mag"]))
         out.worst("obs_gap", gap(res["obs"], program["obs"]))
         for k in range(3):
             if act[k]:
@@ -435,8 +460,11 @@ def evaluate(cfg, snaps, events, seed: int, device, outdir: Optional[str] = None
                           else None)
     if ladder:
         # the zoom L-BFGS may stop short of stationarity on one ladder of a
-        # span (its line search fails): the run's median ladder is compared
+        # span (its line search fails): the run's median ladder is compared;
+        # the full passes' apart (``kkt_full``), which stop short as a rule
         out.values["kkt"] = statistics.median(out.stationarity)
+        if out.stationarity_full:
+            out.values["kkt_full"] = statistics.median(out.stationarity_full)
     last = [s for s, ok in zip(snaps, valid_states(snaps)) if ok][-1]
     if control_dtype is None:
         check_end(cfg, last, out, torch.float64, device, outdir=outdir)

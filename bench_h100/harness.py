@@ -155,10 +155,12 @@ class Recorder:
 
 def ladder_stages(o) -> tuple:
     """The stages of the optimizer's last ladder (none for the moment
-    optimizer): tag, error, averages, multipliers, lengths, the 5% rule's
-    checks, and whether the optimizer took the stage's parameters."""
+    optimizer): tag, error, averages, multipliers, lengths, coherence
+    parameters, the 5% rule's checks, and whether the optimizer took the
+    stage's parameters."""
     return tuple(dict(tag=st["tag"], error=st["error"], averages=st["averages"],
-                      lam=st["lam"], diag_lengths=st["diag_lengths"], check=st["check"],
+                      lam=st["lam"], diag_lengths=st["diag_lengths"],
+                      off_params=st["off_params"], check=st["check"],
                       accepted=st["diag_lengths"] is o.diag_lengths)
                  for st in getattr(o, "stages", ()))
 

@@ -6,7 +6,8 @@ A state is the sampled points (3, N, 2), their density values (3, N, 2) and
 the active mask (3,); the hyperparameters are the moment optimizer's: the
 diagonal lengths (2, 2) and magnitudes (2,), the coherence's (m_R, l_R (2),
 m_I, l_I (2), corr) and magnitude.  The fits are always made again here from
-the points, labels and hyperparameters."""
+the points, labels and hyperparameters: the coherence's block-diagonal fit
+(:mod:`.gp`) at corr = 0, the coupled one (:mod:`.coupled`) otherwise."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from bench_h100.reference import coupled as CP
 from bench_h100.reference import evolve as EV
 from bench_h100.reference import gp as GP
 from bench_h100.reference import physics as PH
@@ -44,11 +46,14 @@ def fit(params: Params, points, rho, active) -> Fits:
     if active[1]:
         o = params.off
         if float(o[6]) != 0.0:
-            raise ValueError("the reference has no coupled (2N, 2N) coherence fit, which an "
-                             "active coherence with corr != 0 needs; it fits the "
-                             "block-diagonal one (corr = 0) only")
-        off = GP.fit_complex(params.off_mag, o[0], o[1:3], o[3], o[4:6], points[1], rho[1])
+            off = CP.fit(params.off_mag, o, points[1], rho[1])
+        else:
+            off = GP.fit_complex(params.off_mag, o[0], o[1:3], o[3], o[4:6], points[1], rho[1])
     return Fits(diag, off, tuple(active))
+
+
+def _coupled(off) -> bool:
+    return isinstance(off, CP.CoupledGP)
 
 
 def dist(fits: Fits, with_variance: bool):
@@ -58,7 +63,9 @@ def dist(fits: Fits, with_variance: bool):
         for d, k in enumerate(DIAG):
             if fits.diag[d] is not None:
                 out[k, :, 0] = GP.predict_real(fits.diag[d], pts[k], with_variance)
-        if fits.off is not None:
+        if _coupled(fits.off):
+            out[1] = CP.predict(fits.off, pts[1], with_variance)
+        elif fits.off is not None:
             out[1] = GP.predict_complex(fits.off, pts[1], with_variance)
         return out
     return predict
@@ -116,7 +123,7 @@ def observe(model: str, mass: float, points, rho, active, fits: Fits) -> dict:
     e_surf, w_sum, prm = torch.stack(e_surf), torch.stack(w_sum), torch.stack(prm)
     purity = sum(GP.purity_real(g) for g in fits.diag if g is not None)
     if fits.off is not None:
-        purity = purity + 2.0 * GP.purity_complex(fits.off)
+        purity = purity + 2.0 * (CP.purity if _coupled(fits.off) else GP.purity_complex)(fits.off)
     pop = torch.sum(prm)
     w0 = rho[0, :, 0]
     return dict(population_prm=pop,

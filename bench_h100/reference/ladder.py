@@ -16,8 +16,13 @@ optimized in sigmoid coordinates z inside per-axis bounds,
 l = lb + (ub - lb) sigmoid(z), so a gradient in z is the gradient in l times
 (l - lb) (ub - l) / (ub - lb).
 
-Only the diagonal elements: a result with an active coherence needs the
-coupled (2N, 2N) coherence fit, which the reference does not have."""
+With the coherence active the ladder's last pass is the full pass: the
+coherence's parameters (m_R, l_R, m_I, l_I) join the lengths, its coupled
+fit at unit magnitude (:mod:`.coupled`, corr = 1: the reference kernel,
+whose zero-width box gives it no coordinate) adds its leave-one-out and
+extra-set errors to the loss and twice its purity integral to the purity.
+Its magnitudes lie in [0.1, 10] (opt.cpp:86-87), its lengths in the bounds
+of the coherence's cloud."""
 
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from bench_h100.reference import coupled as CP
 from bench_h100.reference import gp as GP
 from bench_h100.reference import physics as PH
 
@@ -38,12 +44,18 @@ MIN_LENGTH = 1.0 / 100.0
 CONS_FLOOR = 1e-3
 #: floor of the KKT residual's scale
 KKT_FLOOR = 1e-12
+#: bounds of the coherence's sub-kernel magnitudes (opt.cpp:86-87)
+COH_MAG_BOUNDS = (0.1, 10.0)
+#: the reference kernel's correlation of the coherence's real and imaginary parts
+CORR = 1.0
 
 
 class Problem(NamedTuple):
     """One ladder's data: for each active diagonal element (``surfaces``, 0 or
     1) its points (N, D), real labels (N,), extra points (M, D) and labels
-    (M,), its surface's energy, and its length bounds (D,)."""
+    (M,), its surface's energy, and its length bounds (D,); with the
+    coherence active its points (N, D), RI labels (N, 2), extra points and
+    labels, and the bounds of its free parameters (2 D + 2,), else None."""
 
     surfaces: tuple
     x: list
@@ -54,6 +66,12 @@ class Problem(NamedTuple):
     lb: torch.Tensor           # (k, D)
     ub: torch.Tensor           # (k, D)
     targets: torch.Tensor      # (3,) population, energy, purity
+    xo: torch.Tensor = None
+    yo: torch.Tensor = None
+    xoe: torch.Tensor = None
+    yoe: torch.Tensor = None
+    olb: torch.Tensor = None   # (2 D + 2,) m_R, l_R, m_I, l_I
+    oub: torch.Tensor = None
 
 
 def surface_energy(model: str, mass: float, points, labels, surface: int):
@@ -94,13 +112,21 @@ def problem(model: str, mass: float, points, rho, active, extra_points, extra_rh
     points, rho = points.clone(), rho.clone()
     extra_points, extra_rho = extra_points.clone(), extra_rho.clone()
     bounds = [length_bounds(points[k]) for k in ks]
+    coherence = {}
+    if active[1]:
+        lb, ub = length_bounds(points[1])
+        mag = lambda v: torch.full((1,), v, dtype=lb.dtype, device=lb.device)
+        lo, hi = COH_MAG_BOUNDS
+        coherence = dict(xo=points[1], yo=rho[1], xoe=extra_points[1], yoe=extra_rho[1],
+                         olb=torch.cat([mag(lo), lb, mag(lo), lb]),
+                         oub=torch.cat([mag(hi), ub, mag(hi), ub]))
     return Problem(
         surfaces=surfaces, x=[points[k] for k in ks], y=[rho[k, :, 0] for k in ks],
         xe=[extra_points[k] for k in ks], ye=[extra_rho[k, :, 0] for k in ks],
         energies=torch.stack([surface_energy(model, mass, points[k], rho[k, :, 0], d)
                               for d, k in zip(surfaces, ks)]),
         lb=torch.stack([b[0] for b in bounds]), ub=torch.stack([b[1] for b in bounds]),
-        targets=goal)
+        targets=goal, **coherence)
 
 
 def _extra_error(g: GP.RealGP, xe, ye):
@@ -112,14 +138,27 @@ def _extra_error(g: GP.RealGP, xe, ye):
     return err
 
 
-def evaluate(lengths, prob: Problem):
-    """(loss, averages (3,)) at the active elements' lengths (k, D)."""
+def coherence_fit(off, prob: Problem) -> CP.CoupledGP:
+    """The coherence's coupled fit at unit magnitude at its parameters ``off``
+    (m_R, l_R, m_I, l_I; a correlation after them is not read: corr = 1)."""
+    one = torch.ones((), dtype=off.dtype, device=off.device)
+    free = off[:prob.olb.shape[0]]
+    return CP.fit(one, torch.cat([free, one[None] * CORR]), prob.xo, prob.yo)
+
+
+def evaluate(lengths, prob: Problem, off=None):
+    """(loss, averages (3,)) at the active elements' lengths (k, D) and, with
+    the coherence active, its parameters ``off``: the full pass's."""
     one = torch.ones((), dtype=lengths.dtype, device=lengths.device)
     fits = [GP.fit_real(one, lengths[i], x, y) for i, (x, y) in enumerate(zip(prob.x, prob.y))]
     loss = sum(torch.sum((g.alpha / torch.diagonal(g.kinv)) ** 2)
                + _extra_error(g, xe, ye) for g, xe, ye in zip(fits, prob.xe, prob.ye))
     pops = torch.stack([GP.population_real(g) for g in fits])
     purity = sum(GP.purity_real(g) for g in fits)
+    if prob.xo is not None:
+        g = coherence_fit(off, prob)
+        loss = loss + CP.loocv(g) + CP.extra_error(g, prob.xoe, prob.yoe)
+        purity = purity + 2.0 * CP.purity(g)
     return loss, torch.stack([torch.sum(pops), torch.sum(pops * prob.energies), purity])
 
 
@@ -141,25 +180,35 @@ def magnitudes(lengths, xs, ys):
                         for i, (x, y) in enumerate(zip(xs, ys))])
 
 
-def gradients(lengths, lam, prob: Problem):
-    """(grad f, sum_i lam_i grad c_i) in the sigmoid coordinates, each (k, D),
-    by autograd through the plain fits at ``lengths``."""
+def gradients(lengths, lam, prob: Problem, off=None):
+    """(grad f, sum_i lam_i grad c_i) in the sigmoid coordinates by autograd
+    through the plain fits: at the lengths alone, each (k, D); with the
+    coherence active at the lengths and its parameters ``off``, each the
+    flat (k D + 2 D + 2,) of the full pass."""
+    sig = lambda v, lb, ub: (v - lb) * (ub - v) / (ub - lb)
     with torch.enable_grad():
-        l = lengths.detach().clone().requires_grad_(True)
-        loss, averages = evaluate(l, prob)
+        at = [lengths.detach().clone().requires_grad_(True)]
+        if prob.xo is not None:
+            at.append(off[:prob.olb.shape[0]].detach().clone().requires_grad_(True))
+        loss, averages = evaluate(at[0], prob, at[1] if len(at) > 1 else None)
         cons = constraints(averages, prob)
-        g_f = torch.autograd.grad(loss, l, retain_graph=True)[0]
-        g_c = torch.zeros_like(g_f)
+        g_f = torch.autograd.grad(loss, at, retain_graph=True)
+        g_c = [torch.zeros_like(g) for g in g_f]
         for i in range(lam.shape[0]):
-            g_c = g_c + lam[i] * torch.autograd.grad(cons[i], l, retain_graph=True)[0]
-    jac = (lengths - prob.lb) * (prob.ub - lengths) / (prob.ub - prob.lb)
-    return g_f * jac, g_c * jac
+            g_i = torch.autograd.grad(cons[i], at, retain_graph=True)
+            g_c = [g + lam[i] * gi for g, gi in zip(g_c, g_i)]
+    jac = [sig(at[0].detach(), prob.lb, prob.ub)]
+    if prob.xo is None:
+        return g_f[0] * jac[0], g_c[0] * jac[0]
+    jac.append(sig(at[1].detach(), prob.olb, prob.oub))
+    flat = lambda gs: torch.cat([(g * j).reshape(-1) for g, j in zip(gs, jac)])
+    return flat(g_f), flat(g_c)
 
 
-def kkt(lengths, lam, prob: Problem):
+def kkt(lengths, lam, prob: Problem, off=None):
     """The stationarity of loss + lam . c at a result with multipliers
     ``lam``: |grad f + sum_i lam_i grad c_i| over max(|grad f|,
     |sum_i lam_i grad c_i|, KKT_FLOOR), in the sigmoid coordinates."""
-    g_f, g_c = gradients(lengths, lam, prob)
+    g_f, g_c = gradients(lengths, lam, prob, off)
     norm = lambda g: float(torch.linalg.norm(g.reshape(-1)))
     return norm(g_f + g_c) / max(norm(g_f), norm(g_c), KKT_FLOOR)
