@@ -24,7 +24,16 @@ The inner solver is chosen by :func:`_lbfgs_scan`'s ``line_search``:
   it.  Its loop is data dependent: the line search's scalars live on the
   host and every loss evaluation costs one device-to-host pull
   (the counters ``zoom.<name>`` of :data:`ZOOM_COUNTERS` count them,
-  :mod:`gple_tpu_torch.utils.spans`).
+  :mod:`gple_tpu_torch.utils.spans`).  On a CUDA device the ladder's
+  evaluations (value, gradient and slope) run as CUDA graphs: one
+  :class:`ZoomGraph` per loss kind and shape (:data:`ZOOM_KINDS`), owned by
+  the optimizer's :class:`ZoomGraphs`, captured at its first evaluation and
+  replayed by every later one of every solve, outer update, stage and
+  ladder of the optimizer, with the point, the multipliers, the penalty and
+  the fit data copied into its static buffers (``zoom.replays`` counts the
+  replays).  On the CPU, and in every other caller of the zoom (the
+  validation fits), each evaluation is an eager autograd pass of the
+  closure.
 * ``"fan"`` is :func:`_lbfgs_fixed_fan`, the JAX package's accelerator
   branch: a two-loop recursion and a line search over a fixed fan of step
   scales whose candidates are ONE batched fit (a leading batch axis on every
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 
 from gple_tpu_torch.ops import complex_kernels as CK
+from gple_tpu_torch.ops import graphs as GR
 from gple_tpu_torch.ops import kernels as RK
 from gple_tpu_torch.storage import DIAG_INDICES, OFFDIAG_INDEX, Density, diag_rows
 from gple_tpu_torch.utils import spans
@@ -366,19 +376,22 @@ def _curvature_error(slope, slope_init):
     return _f(np.inf) if np.isnan(err) else err
 
 
-def _lbfgs_zoom(fn, z0, steps: int):
+def _lbfgs_zoom(fn, z0, steps: int, evaluate=None):
     """optax's ``lbfgs()`` with its zoom line search, run as the JAX
     package's ``_lbfgs_zoom`` runs it: at most ``steps`` iterations, stopping
     once the sup-norm of the update is at most :data:`ZOOM_XTOL`, with NaNs
     of the gradient and the update zeroed.
 
-    ``fn`` maps a batch ``(1,) + z0.shape`` to ``(1,)`` losses.  The L-BFGS
-    memory and every vector stay on the device; the line search's scalars
-    (values, slopes, step sizes) are numpy float64 on the host, one pull per
-    loss evaluation plus one per iteration.  The interval search, the
-    cubic / quadratic / bisection choice, the safeguarded step and the
-    approximate-Wolfe test follow ``optax/_src/linesearch.py`` formula for
-    formula."""
+    ``fn`` maps a batch ``(1,) + z0.shape`` to ``(1,)`` losses; each
+    evaluation differentiates it eagerly.  ``evaluate`` (a
+    :class:`ZoomGraph`), where given, takes the place of that evaluation:
+    ``evaluate(z, u)`` of a flat point and direction returns the loss, its
+    gradient and the slope along ``u``.  The L-BFGS memory and every vector
+    stay on the device; the line search's scalars (values, slopes, step
+    sizes) are numpy float64 on the host, one pull per loss evaluation plus
+    one per iteration.  The interval search, the cubic / quadratic /
+    bisection choice, the safeguarded step and the approximate-Wolfe test
+    follow ``optax/_src/linesearch.py`` formula for formula."""
     shape = z0.shape
     z = z0.detach().reshape(-1)
     d = z.shape[0]
@@ -390,13 +403,17 @@ def _lbfgs_zoom(fn, z0, steps: int):
     prev_z, prev_g = z, z
     spans.count("zoom.solves")
 
-    def value_grad(zz):
+    def value_grad(zz, u=None):
+        """The loss and its gradient at ``zz``, and the slope along ``u``."""
+        spans.count("zoom.evaluations")
+        if evaluate is not None:
+            return evaluate(zz, u)
         zz = zz.detach().requires_grad_(True)
         with torch.enable_grad():
             value = fn(zz.reshape((1,) + shape))[0]
             (grad,) = torch.autograd.grad(value, zz, allow_unused=True)
-        spans.count("zoom.evaluations")
-        return value.detach(), torch.zeros_like(zz) if grad is None else grad
+        grad = torch.zeros_like(zz) if grad is None else grad
+        return value.detach(), grad, None if u is None else torch.dot(grad, u)
 
     def pull(*scalars):
         spans.count("zoom.syncs")
@@ -408,7 +425,7 @@ def _lbfgs_zoom(fn, z0, steps: int):
     while it < steps and dz > ZOOM_XTOL:
         fresh = not np.isfinite(value)
         if fresh:
-            value_t, grad = value_grad(z)
+            value_t, grad, _ = value_grad(z)
         grad = torch.nan_to_num(grad)
         # -- scale_by_lbfgs: store the newest pair, then the two-loop product
         if count > 0:
@@ -442,8 +459,8 @@ def _lbfgs_zoom(fn, z0, steps: int):
 
         # -- the zoom line search along u
         def on_line(step):
-            v, g = value_grad(z + float(step) * u)
-            vh, sh = pull(v, torch.dot(g, u))
+            v, g, slope = value_grad(z + float(step) * u, u)
+            vh, sh = pull(v, slope)
             return vh, g, sh
 
         v0 = value
@@ -522,31 +539,181 @@ def _lbfgs_zoom(fn, z0, steps: int):
 LINE_SEARCHES = ("zoom", "fan")
 
 
-def _lbfgs_scan(fn, z0, steps: int, line_search: str = "zoom"):
+def _lbfgs_scan(fn, z0, steps: int, line_search: str = "zoom", evaluate=None):
     """The bounded L-BFGS inner solver: ``"zoom"`` (:func:`_lbfgs_zoom`, the
-    JAX package's CPU branch and its ladder's default) or ``"fan"``
-    (:func:`_lbfgs_fixed_fan`, its accelerator branch)."""
+    JAX package's CPU branch and its ladder's default, with its optional
+    graphed ``evaluate``) or ``"fan"`` (:func:`_lbfgs_fixed_fan`, its
+    accelerator branch)."""
     if line_search == "zoom":
-        return _lbfgs_zoom(fn, z0, steps)
+        return _lbfgs_zoom(fn, z0, steps, evaluate)
     if line_search == "fan":
         return _lbfgs_fixed_fan(fn, z0, steps)
     raise ValueError(f"_lbfgs_scan: unknown line_search {line_search!r}")
 
 
+# -- the stage's losses as functions of the sigmoid coordinates ------------------------
+
+def _cons_scale(targets):
+    """The constraints' scale: they are RELATIVE violations (avgs / target -
+    1), so one penalty scale fits population, energy and purity alike."""
+    return torch.clamp(torch.abs(targets), min=1e-3)
+
+
+def _diag_lc(z, data, n_cons: int):
+    """The constrained diagonal pass at ``z (..., 2, D)``: the loss and the
+    first ``n_cons`` relative constraint violations."""
+    states = _diag_states(_sigmoid_to_bounds(z, data["dlb"], data["dub"]), data)
+    avgs = _averages_from_states(states, None, data)
+    cons = ((avgs - data["targets"]) / _cons_scale(data["targets"]))[..., :n_cons]
+    return _diag_loss_from_states(states, data), cons
+
+
+def _full_lc(z, data):
+    """The constrained full pass at ``z (..., 2D + 2D + 3)`` (the diagonal
+    lengths' coordinates, then the coherence's): the joint loss and the
+    three relative constraint violations."""
+    dlb = data["dlb"]
+    nd = dlb.numel()
+    lengths = _sigmoid_to_bounds(z[..., :nd].reshape(z.shape[:-1] + dlb.shape), dlb,
+                                 data["dub"])
+    dstates = _diag_states(lengths, data)
+    ostate = _off_state(_sigmoid_to_bounds(z[..., nd:], data["olb"], data["oub"]), data)
+    avgs = _averages_from_states(dstates, ostate, data)
+    loss = _diag_loss_from_states(dstates, data) + _off_loss_from_state(ostate, data)
+    return loss, (avgs - data["targets"]) / _cons_scale(data["targets"])
+
+
+def _penalized(loss_and_cons, lam, mu):
+    """The augmented Lagrangian loss + lam.c + mu/2 |c|^2 of ``loss_and_cons``;
+    ``mu`` a number or a 0-d tensor."""
+    def objective(z):
+        loss, cons = loss_and_cons(z)
+        return loss + torch.sum(lam * cons, dim=-1) + 0.5 * mu * torch.sum(cons**2, dim=-1)
+    return objective
+
+
+def _zoom_loss(kind: str, data, n_cons: int = 0, lam=None, mu=None):
+    """The loss of a :data:`ZOOM_KINDS` kind as a function of a batch of
+    sigmoid coordinates; the constrained kinds penalized by ``lam`` and
+    ``mu``."""
+    if kind == "diag":
+        return lambda z: _diag_loss(_sigmoid_to_bounds(z, data["dlb"], data["dub"]), data)
+    if kind == "off":
+        return lambda z: _off_loss(_sigmoid_to_bounds(z, data["olb"], data["oub"]), data)
+    if kind == "diag_lc":
+        return _penalized(lambda z: _diag_lc(z, data, n_cons), lam, mu)
+    if kind == "full_lc":
+        return _penalized(lambda z: _full_lc(z, data), lam, mu)
+    raise ValueError(f"_zoom_loss: unknown kind {kind!r}")
+
+
+# -- the zoom's graphed evaluations ----------------------------------------------------
+
+#: the zoom's loss kinds: the diagonal elementwise loss, the coherence's, the
+#: constrained diagonal objective and the constrained full objective
+ZOOM_KINDS = ("diag", "off", "diag_lc", "full_lc")
+
+
+class ZoomGraph:
+    """One loss kind's value and gradient as a :class:`~gple_tpu_torch.ops.
+    graphs.Graph` of kind ``"zoom"`` that differentiates: over the static
+    point ``z`` (flat), direction ``u``, multipliers ``lam`` and penalty
+    ``mu`` (0-d), the fit data of its :class:`ZoomGraphs`, and the outputs
+    ``value``, ``grad`` and ``slope`` (``grad . u``).  On a CUDA device the
+    first call captures it and every call replays it (each replay counts
+    ``zoom.replays``); on the CPU it runs eagerly, the same function over
+    the same buffers."""
+
+    def __init__(self, kind: str, z0, data, n_cons: int = 0):
+        f64 = dict(dtype=z0.dtype, device=z0.device)
+        self.shape = tuple(z0.shape)
+        self.z = torch.zeros(z0.numel(), **f64)
+        self.u = torch.zeros_like(self.z)
+        self.lam = torch.zeros(n_cons, **f64)
+        self.mu = torch.zeros((), **f64)
+        self.value = torch.zeros((), **f64)
+        self.grad = torch.zeros_like(self.z)
+        self.slope = torch.zeros((), **f64)
+        self.loss = _zoom_loss(kind, data, n_cons, self.lam, self.mu)
+        self.graph = GR.Graph(self._evaluate, [self.z, self.u, self.lam, self.mu, self.value,
+                                               self.grad, self.slope], "zoom", autograd=True)
+
+    def _evaluate(self):
+        z = self.z.detach().requires_grad_(True)
+        value = self.loss(z.reshape((1,) + self.shape))[0]
+        (grad,) = torch.autograd.grad(value, z, allow_unused=True)
+        with torch.no_grad():
+            self.value.copy_(value)
+            if grad is None:
+                self.grad.zero_()
+            else:
+                self.grad.copy_(grad)
+            self.slope.copy_(torch.dot(self.grad, self.u))
+
+    def penalty(self, lam, mu: float) -> None:
+        """Set the multipliers and the penalty of the next solves."""
+        self.lam.copy_(lam)
+        self.mu.fill_(mu)
+
+    def __call__(self, z, u=None):
+        """(value, gradient, slope along ``u``) at the flat point ``z``; the
+        value and slope are the buffers, valid until the next call."""
+        self.z.copy_(z)
+        if u is not None:
+            self.u.copy_(u)
+        self.graph()
+        if self.graph.graph is not None:
+            spans.count("zoom.replays")
+        return self.value, self.grad.clone(), self.slope
+
+
+class ZoomGraphs:
+    """An optimizer's :class:`ZoomGraph` s, one per loss kind, point shape
+    and number of constraints, over one static copy of the fit data, which
+    :meth:`load` refills from each ladder's data (new buffers, and no
+    graphs, when the data's shapes change)."""
+
+    def __init__(self):
+        self.data = None
+        self.graphs = {}
+        self._source = None
+
+    def load(self, data) -> None:
+        """Make ``data`` the fit data of every graph (a copy into the
+        buffers, once for each data dict)."""
+        if data is self._source:
+            return
+        layout = {k: (v.shape, v.dtype, v.device) for k, v in data.items()}
+        if self.data is None or layout != {k: (v.shape, v.dtype, v.device)
+                                           for k, v in self.data.items()}:
+            self.data = {k: v.detach().clone() for k, v in data.items()}
+            self.graphs = {}
+        else:
+            GR.copy_(self.data, data)
+        self._source = data
+
+    def get(self, kind: str, z0, n_cons: int = 0) -> ZoomGraph:
+        key = (kind, tuple(z0.shape), n_cons)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = ZoomGraph(kind, z0, self.data, n_cons)
+        return graph
+
+
 # -- one stage of the ladder -----------------------------------------------------------
 
 def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int,
-                 line_search: str = "zoom"):
+                 line_search: str = "zoom", evaluate=None):
     """Augmented-Lagrangian outer loop: ``al_outer`` L-BFGS solves of
-    loss + lam.c + mu/2 |c|^2, each followed by lam += mu c, mu *= growth.
-    Returns (z, lam)."""
+    loss + lam.c + mu/2 |c|^2, each followed by lam += mu c, mu *= growth;
+    ``evaluate`` (a :class:`ZoomGraph` of the same objective) takes each
+    solve's lam and mu.  Returns (z, lam)."""
     z, lam, mu = z0, lam_init, AL_MU0
     for _ in range(al_outer):
-        def objective(zz, lam=lam, mu=mu):
-            loss, cons = loss_and_cons(zz)
-            return loss + torch.sum(lam * cons, dim=-1) + 0.5 * mu * torch.sum(cons**2, dim=-1)
-
-        z = _lbfgs_scan(objective, z, lbfgs_steps, line_search)
+        if evaluate is not None:
+            evaluate.penalty(lam, mu)
+        z = _lbfgs_scan(_penalized(loss_and_cons, lam, mu), z, lbfgs_steps, line_search,
+                        evaluate)
         with torch.no_grad():
             _, cons = loss_and_cons(z)
         lam, mu = lam + mu * cons, mu * AL_MU_GROWTH
@@ -554,59 +721,49 @@ def _al_minimize(z0, loss_and_cons, lam_init, lbfgs_steps: int, al_outer: int,
 
 
 def _run_stage(start_diag, start_off, lam0, data, off_active: bool,
-               lbfgs_steps: int, al_outer: int, line_search: str = "zoom"):
+               lbfgs_steps: int, al_outer: int, line_search: str = "zoom", graphs=None):
     """One complete do_optimize pass (opt.cpp:1101-1198): elementwise fits,
     then the constrained diagonal pass, then (when the coherence is active)
     the constrained full pass.  ``lam0``: (2, 3) warm-start multipliers of
     the (diagonal, full) passes, zeros for a cold start; ``line_search``
-    the inner solver (:func:`_lbfgs_scan`).
+    the inner solver (:func:`_lbfgs_scan`); ``graphs`` (a
+    :class:`ZoomGraphs`) evaluates the zoom's losses, each kind as one
+    graph, where given.
 
     Returns (diag_lengths, off_flat, error, raw averages (3,), lam_out (2, 3))
     as device tensors."""
     dlb, dub = data["dlb"], data["dub"]
     olb, oub = data["olb"], data["oub"]
-    targets = data["targets"]
+    graphed = graphs is not None and line_search == "zoom"
+    if graphed:
+        graphs.load(data)
+
+    def evaluator(kind, z0, n_cons=0):
+        return graphs.get(kind, z0, n_cons) if graphed else None
 
     # 1. elementwise unconstrained minimization
     zd = _bounds_to_sigmoid(start_diag, dlb, dub)
-    zd = _lbfgs_scan(lambda z: _diag_loss(_sigmoid_to_bounds(z, dlb, dub), data),
-                     zd, lbfgs_steps, line_search)
+    zd = _lbfgs_scan(_zoom_loss("diag", data), zd, lbfgs_steps, line_search,
+                     evaluator("diag", zd))
     zo = _bounds_to_sigmoid(start_off, olb, oub)
     if off_active:
-        zo = _lbfgs_scan(lambda z: _off_loss(_sigmoid_to_bounds(z, olb, oub), data),
-                         zo, lbfgs_steps, line_search)
+        zo = _lbfgs_scan(_zoom_loss("off", data), zo, lbfgs_steps, line_search,
+                         evaluator("off", zo))
 
-    # 2. constrained passes; the constraints are RELATIVE violations
-    # (avgs / target - 1), so one penalty scale fits population, energy and
-    # purity alike.  The diagonal pass holds purity only without a coherence.
+    # 2. constrained passes; the diagonal pass holds purity only without a
+    # coherence
     n_cons_diag = 2 if off_active else 3
-    cons_scale = torch.clamp(torch.abs(targets), min=1e-3)
-
-    def diag_lc(z):
-        states = _diag_states(_sigmoid_to_bounds(z, dlb, dub), data)
-        avgs = _averages_from_states(states, None, data)
-        cons = ((avgs - targets) / cons_scale)[..., :n_cons_diag]
-        return _diag_loss_from_states(states, data), cons
-
-    zd, lam_diag = _al_minimize(zd, diag_lc, lam0[0][:n_cons_diag], lbfgs_steps, al_outer,
-                                line_search)
+    zd, lam_diag = _al_minimize(zd, lambda z: _diag_lc(z, data, n_cons_diag),
+                                lam0[0][:n_cons_diag], lbfgs_steps, al_outer, line_search,
+                                evaluator("diag_lc", zd, n_cons_diag))
     lam_full = lam0[1][:3]
 
     if off_active:
         nd = zd.numel()
         zall = torch.cat([zd.reshape(-1), zo])
-
-        def full_lc(z):
-            lengths = _sigmoid_to_bounds(z[..., :nd].reshape(z.shape[:-1] + zd.shape), dlb, dub)
-            dstates = _diag_states(lengths, data)
-            ostate = _off_state(_sigmoid_to_bounds(z[..., nd:], olb, oub), data)
-            avgs = _averages_from_states(dstates, ostate, data)
-            loss = (_diag_loss_from_states(dstates, data)
-                    + _off_loss_from_state(ostate, data))
-            return loss, (avgs - targets) / cons_scale
-
-        zall, lam_full = _al_minimize(zall, full_lc, lam0[1], lbfgs_steps, al_outer,
-                                      line_search)
+        zall, lam_full = _al_minimize(zall, lambda z: _full_lc(z, data), lam0[1],
+                                      lbfgs_steps, al_outer, line_search,
+                                      evaluator("full_lc", zall, 3))
         zd = zall[:nd].reshape(zd.shape)
         zo = zall[nd:]
 
@@ -774,6 +931,10 @@ class Optimizer:
         #: (2, 3) warm-start AL multipliers (diagonal pass, full pass) of the
         #: last reoptimization; None until the first one completes
         self._al_lam = None
+        #: the zoom's graphed loss evaluations of the ladders on a CUDA device:
+        #: captured at each kind's first evaluation, replayed by every later
+        #: one of this optimizer
+        self._zoom_graphs = ZoomGraphs()
 
     def _initial_off(self):
         # corr starts at 0 (independent Re/Im), the neutral point of [-1, 1]
@@ -837,6 +998,7 @@ class Optimizer:
         """The three-stage restart ladder (opt.cpp:1200-1392)."""
         off_active = bool(active[OFFDIAG_INDEX])
         f64 = dict(dtype=data["dlb"].dtype, device=data["dlb"].device)
+        graphs = self._zoom_graphs if data["dlb"].device.type == "cuda" else None
         names = ("dlb", "dub", "olb", "oub")
         bounds = dict(zip(names, _host(*(data[k] for k in names))))
 
@@ -849,7 +1011,8 @@ class Optimizer:
                     lam0 = torch.tensor(self._al_lam if warm else np.zeros((2, 3)), **f64)
                     starts = (torch.tensor(start_diag, **f64), torch.tensor(start_off, **f64))
                 out = _run_stage(*starts, lam0, data, off_active, self.lbfgs_steps,
-                                 AL_OUTER // 2 if warm else AL_OUTER, self.line_search)
+                                 AL_OUTER // 2 if warm else AL_OUTER, self.line_search,
+                                 graphs)
                 dl, of, err, avgs, lam = _host(*out)
             return dict(diag_lengths=dl, off_params=of, error=float(err),
                         check=self._check_averages(avgs, off_active), tag=tag, lam=lam,

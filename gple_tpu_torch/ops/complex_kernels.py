@@ -40,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from gple_tpu_torch.ops.gram_kernels import gram_rbf, predict_mean_rbf
-from gple_tpu_torch.ops.kernels import RESCALE_MAXIMUM, cutoff_factor
+from gple_tpu_torch.ops.kernels import RESCALE_MAXIMUM, cutoff_factor, positive_prod
 from gple_tpu_torch.ops.linalg import psd_inverse, psd_inverse_warm
 from gple_tpu_torch.utils import ri
 from gple_tpu_torch.utils.constants import purity_factor
@@ -123,7 +123,7 @@ def correlation_params(p: ComplexKernelParams):
     corr_mag = torch.sqrt(
         p.real_magnitude
         * p.imag_magnitude
-        * torch.prod(2.0 * p.real_lengths * p.imag_lengths / sum_sq, dim=-1)
+        * positive_prod(2.0 * p.real_lengths * p.imag_lengths / sum_sq)
     )
     corr_len = torch.sqrt(sum_sq / 2.0)
     return corr_mag, corr_len
@@ -407,13 +407,13 @@ def predict_complex(state: ComplexTrainState, test_features, with_variance: bool
 
 def _aux_self(mag, lengths):
     """Auxiliary params of one kernel: (mag^2 sqrt(prod l), sqrt(2) l), batched."""
-    return mag**2 * torch.sqrt(torch.prod(lengths, dim=-1)), math.sqrt(2.0) * lengths
+    return mag**2 * torch.sqrt(positive_prod(lengths)), math.sqrt(2.0) * lengths
 
 
 def _aux_mixed(mag_a, len_a, mag_b, len_b):
     """Mixed auxiliary params of two kernels."""
     mag = mag_a * mag_b / torch.sqrt(
-        torch.sqrt(torch.prod(0.5 * (1.0 / len_a**2 + 1.0 / len_b**2), dim=-1))
+        torch.sqrt(positive_prod(0.5 * (1.0 / len_a**2 + 1.0 / len_b**2)))
     )
     return mag, torch.sqrt(len_a**2 + len_b**2)
 

@@ -21,17 +21,25 @@ On the CPU a :class:`Graph` runs ``fn()`` eagerly at every call: the same
 Python function serves both routes.  On a CUDA device the first call
 captures, and a capture that fails raises: there is no eager fallback.
 
+A graph runs under ``torch.inference_mode``, or, made with
+``autograd=True``, in grad mode: its function may then differentiate
+(``torch.autograd.grad``), and the capture holds the forward and the
+backward kernels both.  The zoom line search's loss and gradient are such
+graphs (``gp/opt.py``'s ``ZoomGraph``).
+
 Launch counts: a kernel launched while capturing runs nothing, so the
 capture's counts are taken back out of ``gram_kernels.LAUNCHES`` (and
 ``LAUNCHES_BY_SHAPE``) and every replay adds them again (:attr:`launches`).
 
 Spans (:mod:`gple_tpu_torch.utils.spans`): each capture is a ``capture``
 span and each replay a ``launch`` span, both with the graph's ``kind``
-(``tick``, ``period_end``, ``walk``); their calls count the captures and
-replays.  The CPU's eager runs make no span.
+(``tick``, ``period_end``, ``walk``, ``zoom``); their calls count the
+captures and replays.  The CPU's eager runs make no span.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -90,23 +98,34 @@ def copy_(dst, src) -> None:
         d.copy_(s)
 
 
+def _mode(autograd: bool):
+    """Grad mode outside any inference mode, or ``torch.inference_mode``."""
+    if not autograd:
+        return torch.inference_mode()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.inference_mode(False))
+    stack.enter_context(torch.enable_grad())
+    return stack
+
+
 class Graph:
     """``fn()`` over the static tensors ``state``: run eagerly on the CPU, and
     on a CUDA device captured into one CUDA graph at the first call (or at
     :meth:`capture`) and replayed at every call.  ``kind`` names the graph
-    in its spans.
+    in its spans; ``autograd`` runs ``fn`` in grad mode (module docstring).
 
-    The capture first runs ``fn`` once on a side stream (cuBLAS, cuSOLVER
-    and the caching allocator set themselves up outside the capture), puts
-    ``state`` back bit for bit, then captures under
-    ``torch.inference_mode``.  After it, :attr:`pool_bytes` is the device
-    memory the graph's private pool reserved, and :attr:`launches` the
-    kernel launches of one replay by (kernel, shape)."""
+    The capture first runs ``fn`` once on a side stream (cuBLAS, cuSOLVER,
+    autograd and the caching allocator set themselves up outside the
+    capture), puts ``state`` back bit for bit, then captures under the
+    graph's mode.  After it, :attr:`pool_bytes` is the device memory the
+    graph's private pool reserved, and :attr:`launches` the kernel launches
+    of one replay by (kernel, shape)."""
 
-    def __init__(self, fn, state, kind: str):
+    def __init__(self, fn, state, kind: str, autograd: bool = False):
         self.fn = fn
         self.state = leaves(state)
         self.kind = kind
+        self.autograd = autograd
         self.graph = None
         self.launches: dict = {}
         self.pool_bytes = 0
@@ -117,7 +136,7 @@ class Graph:
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            with torch.inference_mode():
+            with _mode(self.autograd):
                 self.fn()
             return
         self.capture()
@@ -134,7 +153,7 @@ class Graph:
 
     def _capture(self) -> None:
         dev = self.device
-        with torch.inference_mode():
+        with _mode(self.autograd):
             saved = [t.clone() for t in self.state]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))

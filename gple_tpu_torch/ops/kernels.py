@@ -28,6 +28,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gple_tpu_torch.ops.gram_kernels import gram_rbf, predict_mean_rbf
 from gple_tpu_torch.ops.linalg import psd_inverse, psd_inverse_warm, refine_solve
@@ -88,12 +89,38 @@ def gram(lengths, xa, xb):
     return gram_rbf(*_kernel_operands(lengths, xa, xb))
 
 
+class _PositiveProd(torch.autograd.Function):
+    """``torch.prod(x, dim=-1)`` of nonzero factors, differentiated as PyTorch
+    differentiates a product without zeros, ``g prod / x``.  PyTorch's own
+    backward first counts the zero factors on the host (an ``item()``), a
+    sync that a CUDA graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.prod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * (out[..., None] / x)
+
+
+def positive_prod(x):
+    """``torch.prod(x, dim=-1)`` of positive factors (lengths and widths),
+    the same numbers forward and backward, with no host sync in its
+    gradient (:class:`_PositiveProd`)."""
+    return _PositiveProd.apply(x)
+
+
 def effective_length_product(lengths, matrix: bool = False):
     """prod of characteristic lengths -- the Gaussian-integral volume factor;
     1/prod(|diag W|) for a characteristic matrix W."""
     if matrix:
         return 1.0 / torch.abs(torch.prod(torch.diagonal(lengths, dim1=-2, dim2=-1), dim=-1))
-    return torch.prod(lengths, dim=-1)
+    return positive_prod(lengths)
 
 
 def purity_aux_lengths(lengths, matrix: bool = False):

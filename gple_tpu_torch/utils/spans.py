@@ -6,7 +6,8 @@ nest; the attributes (``tick``, ``n``, ``ok``, ``kind``, ...) say which
 piece it was, and ``s.set(...)`` adds to them before the span closes.
 ``count(name, n)`` adds to a counter.  The port's counters are the zoom
 solver's ``zoom.solves``, ``zoom.iterations``, ``zoom.evaluations`` and
-``zoom.syncs`` (``gp/opt.py``) and the tick's ``small.pairs``, the
+``zoom.syncs`` and the evaluations that a graph replay served,
+``zoom.replays`` (``gp/opt.py``), and the tick's ``small.pairs``, the
 activation test's predictions with variance (``driver._count_pairs``).
 
 **Totals** are always on.  Every closed span adds its duration and one call,

@@ -6,7 +6,9 @@ it writes.  On the card (``gpu``): ten replays of the captured tick graph
 against ten eager ``_tick_core`` ticks from the same state, bit for bit,
 with the hand-written kernels' launches counted at every replay; and a
 tuned Metropolis walk as graph replays against the same walk as the
-straight loop, bit for bit.  On the CPU besides: the tick's activation
+straight loop, bit for bit; the ladder's zoom evaluations as graph
+replays against the eager closures.  On the CPU besides: a graph that
+differentiates, the tick's activation
 test on the host's active tuple against the full test, the GP states'
 active mask against the density's at every load of the tick graph's state,
 and the ``small.pairs`` counter.  This file
@@ -47,6 +49,22 @@ def test_cpu_graph_runs_eagerly():
     graph()
     graph()
     assert state.tolist() == [2.0, 2.0] and graph.graph is None
+
+
+def test_cpu_autograd_graph_differentiates():
+    """A graph made with ``autograd=True`` runs its function in grad mode,
+    inside the caller's inference mode too."""
+    x, out = torch.tensor([1.0, -2.0]), torch.zeros(2)
+
+    def grad_of_square():
+        z = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.sum(z**2), z)
+        out.copy_(g)
+
+    graph = GR.Graph(grad_of_square, (x, out), "zoom", autograd=True)
+    with torch.inference_mode():
+        graph()
+    assert out.tolist() == [2.0, -4.0] and graph.graph is None
 
 
 @pytest.mark.gpu
@@ -128,6 +146,98 @@ def test_failed_chain_capture_raises(cuda_device):
             mc.markov_chain(RandomKeys(1, cuda_device), pulls,
                             (torch.ones(4, dtype=torch.float64, device=cuda_device),), 3,
                             pts, False, 0.1, mc.Chains())
+
+
+def _ladder_cloud(n: int, device, seed: int):
+    """A density of ``n`` points an element and its ``5 n`` extra points,
+    all three elements active: the packet of ``tests/test_opt.py`` (x0 =
+    -10, p0 = 30) as the (0, 0) labels, a quadrature coherence at 5% of it
+    and a 1% upper population."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r0, sigma = np.array([-10.0, 30.0]), np.array([1.0 / 3.0, 1.5])
+
+    def cloud(m):
+        pts = r0 + rng.normal(size=(3, m, 2)) * sigma
+        g = np.exp(-np.sum((pts - r0) ** 2 / (2 * sigma**2), axis=-1)) / (2 * np.pi * sigma.prod())
+        rho = np.zeros((3, m, 2))
+        rho[0, :, 0] = g[0]
+        rho[1] = 0.05 * g[1][:, None] * np.stack([np.cos(pts[1, :, 0]),
+                                                  np.sin(pts[1, :, 0])], axis=-1)
+        rho[2, :, 0] = 0.01 * g[2]
+        f64 = dict(dtype=torch.float64, device=device)
+        return TD.Density(points=torch.tensor(pts, **f64), rho=torch.tensor(rho, **f64),
+                          active=torch.ones(3, dtype=torch.bool, device=device))
+
+    return cloud(n), cloud(5 * n)
+
+
+@pytest.mark.gpu
+def test_zoom_graphs_match_the_eager_ladder(cuda_device):
+    """The ladder's zoom evaluations as graph replays against the eager
+    closures at N = 256 with the coherence active: one ``_run_stage`` each
+    way, its lengths, coherence parameters, error and averages to 1e-12
+    relative, the same solves, iterations, evaluations and pulls, and every
+    evaluation a replay.  Then one optimizer's two ladders on two clouds:
+    each loss kind captured once (``capture`` spans of kind ``zoom``), every
+    evaluation a replay, and each replay launching the hand-written kernels
+    of one eager evaluation."""
+    import numpy as np
+
+    from gple_tpu_torch import observables as OBS
+    from gple_tpu_torch.gp import opt as O
+    from gple_tpu_torch.ops import gram_kernels as GK
+
+    sigma_r0 = np.array([1.0 / 3.0, 1.5])
+    density, extra = _ladder_cloud(256, cuda_device, 11)
+    energies = OBS.total_energy_each_surface("DAC", density, 2000.0)
+    kw = dict(model="DAC", mass=2000.0, total_energy=float(energies[0]), purity=1.0,
+              sigma_r0=sigma_r0, opt_mode="ladder", lbfgs_steps=10)
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    with torch.inference_mode(False), torch.enable_grad():
+        data, active = O.Optimizer(**kw)._pack_data(density, extra, energies)
+        data = {k: v.clone() for k, v in data.items()}
+        host = {k: data[k].cpu().numpy() for k in ("dlb", "dub", "olb", "oub")}
+        start = (torch.tensor(np.clip(np.tile(sigma_r0, (2, 1)), host["dlb"], host["dub"]), **f64),
+                 torch.tensor(np.clip(O.Optimizer(**kw)._initial_off(), host["olb"], host["oub"]),
+                              **f64))
+        outs, counts = {}, {}
+        for name, graphs in (("eager", None), ("graph", O.ZoomGraphs())):
+            with spans.collect() as totals:
+                outs[name] = O._run_stage(*start, torch.zeros((2, 3), **f64), data,
+                                          bool(active[O.OFFDIAG_INDEX]), 10, O.AL_OUTER,
+                                          "zoom", graphs)
+            counts[name] = {k: totals.count("zoom." + k) for k in O.ZOOM_COUNTERS + ("replays",)}
+    assert bool(active.all())
+    eager, graph = counts["eager"], counts["graph"]
+    assert graph.pop("replays") == graph["evaluations"] > 0 and eager.pop("replays") == 0
+    assert graph == eager
+    for ours, theirs, name in zip(outs["graph"][:4], outs["eager"][:4],
+                                  ("diag lengths", "off params", "error", "averages")):
+        torch.testing.assert_close(ours, theirs, rtol=1e-12, atol=0, msg=name)
+
+    optimizer = O.Optimizer(**kw)
+    with spans.timeline() as tl, spans.collect() as totals:
+        for seed in (11, 12):
+            density, extra = _ladder_cloud(256, cuda_device, seed)
+            optimizer.optimize(density, extra, energies)
+    captured = [s.attrs["kind"] for s in tl.records if s.name == "capture"]
+    graphs = optimizer._zoom_graphs.graphs
+    assert {key[0] for key in graphs} == set(O.ZOOM_KINDS)
+    assert captured == ["zoom"] * len(graphs)
+    assert totals.count("zoom.replays") == totals.count("zoom.evaluations") > 0
+    for g in graphs.values():
+        per_replay = {}
+        for (name, _), n in g.graph.launches.items():
+            per_replay[name] = per_replay.get(name, 0) + n
+        GK.reset_launches()
+        with torch.inference_mode(False), torch.enable_grad():
+            z = g.z.clone().requires_grad_(True)
+            torch.autograd.grad(g.loss(z.reshape((1,) + g.shape))[0], z)
+        torch.cuda.synchronize()
+        assert per_replay == {k: n for k, n in GK.LAUNCHES.items() if n}
+        assert {"rbf_gram", "rbf_gram_vjp"} <= set(per_replay)
 
 
 # -- the activation test on the host's tuple -------------------------------------------

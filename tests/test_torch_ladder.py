@@ -8,7 +8,10 @@ elements active, so the full pass with the coherence runs).
 Two inner solvers.  The default of both packages on the CPU is optax's zoom
 line search (the port's ``_lbfgs_zoom``): ``test_run_stage_zoom_matches`` and
 ``test_optimize_ladder_zoom_matches`` compare the two ladders as they are,
-unpatched.  The fixed fan (the JAX package's accelerator branch, the port's
+unpatched; ``test_run_stage_zoom_graph_buffers_match_the_closures`` holds
+the zoom's evaluations through ``opt.ZoomGraph``'s static buffers (run
+eagerly on the CPU) to the closures, bit for bit.  The fixed fan (the JAX
+package's accelerator branch, the port's
 ``line_search="fan"``): the other stage and optimizer tests patch
 ``gple_tpu.gp.opt._lbfgs_scan`` to ``_lbfgs_fixed_fan`` only while the JAX
 side computes (``_jax_fixed_fan``; ``jax``'s caches are cleared on entry and
@@ -238,6 +241,65 @@ def test_run_stage_zoom_matches(problem):
     the fan's tests: its patch clears JAX's caches, and the next test reuses
     this one's compiled stage)."""
     _stage_pair(problem, "zoom")
+
+
+def _recording_zoom(inner, points):
+    """The zoom solver ``inner`` appending every point it evaluates, flat, to
+    ``points``: through the closure ``fn``, or through the ``evaluate`` it
+    was given."""
+    def zoom(fn, z0, steps, evaluate=None):
+        if evaluate is None:
+            def fn_rec(z):
+                points.append(z.detach().reshape(-1).clone())
+                return fn(z)
+            return inner(fn_rec, z0, steps)
+
+        def evaluate_rec(z, u=None):
+            points.append(z.detach().clone())
+            return evaluate(z, u)
+        return inner(fn, z0, steps, evaluate_rec)
+    return zoom
+
+
+def test_run_stage_zoom_graph_buffers_match_the_closures(problem, monkeypatch):
+    """The zoom's evaluations through :class:`opt.ZoomGraph`'s static buffers
+    (run eagerly on the CPU: the multipliers and the penalty as tensors, the
+    fit data read from the buffers) against the closures, bit for bit: every
+    point the line searches evaluate and the stage's lengths, error,
+    averages and multipliers.  One set of graphs serves three stages: two
+    with different warm multipliers (its lam and mu refilled at every
+    solve), then one on another data set (its data refilled).  The diagonal
+    problem runs the constrained diagonal pass, the coherence problem the
+    full pass besides."""
+    tdata = problem["tdata"]
+    other = dict(tdata, drho=0.9 * tdata["drho"], derho=0.9 * tdata["derho"],
+                 orho=1.1 * tdata["orho"], oerho=1.1 * tdata["oerho"])
+    diag, off = _params(problem, np.random.default_rng(42))
+    lams = (np.array([[0.5, -0.2, 0.1], [0.3, 0.0, -0.4]]),
+            np.array([[-1.5, 0.7, 0.2], [0.0, 2.0, 0.4]]))
+    graphs, zoom = opt.ZoomGraphs(), opt._lbfgs_zoom
+    for data, lam0 in ((tdata, lams[0]), (tdata, lams[1]), (other, lams[0])):
+        outs, points = [], ([], [])
+        for use, pts in ((None, points[0]), (graphs, points[1])):
+            monkeypatch.setattr(opt, "_lbfgs_zoom", _recording_zoom(zoom, pts))
+            outs.append(opt._run_stage(torch.tensor(diag), torch.tensor(off),
+                                       torch.tensor(lam0), data, problem["off_active"],
+                                       OPT_STEPS, 2, "zoom", use))
+        assert len(points[0]) == len(points[1]) > 0
+        for a, b in zip(*points):
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
+        for a, b, name in zip(*outs, ("diag lengths", "off params", "error", "averages",
+                                      "multipliers")):
+            torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
+        assert all(torch.equal(graphs.data[k], v) for k, v in data.items())
+    kinds = {key[0] for key in graphs.graphs}
+    assert kinds == ({"diag", "off", "diag_lc", "full_lc"} if problem["off_active"]
+                     else {"diag", "diag_lc"})
+    for g in graphs.graphs.values():
+        assert g.graph.graph is None
+        if g.lam.numel():
+            assert float(g.mu) == opt.AL_MU0 * opt.AL_MU_GROWTH
+    assert not torch.equal(graphs.data["drho"], tdata["drho"])
 
 
 def test_optimize_ladder_zoom_matches(problem):
