@@ -111,18 +111,7 @@ def driver_to_torch(jax_driver, device, rng=None, outdir=None, verbose=False) ->
     drv.density = to_torch(jax_driver.density, device)
     drv.extra = to_torch(jax_driver.extra, device)
     drv.gps = to_torch(jax_driver.gps, device)
-    jopt = jax_driver.optimizer
-    drv.optimizer = Optimizer(
-        model=jopt.model, mass=float(jopt.mass), total_energy=float(jopt.total_energy),
-        purity=float(jopt.purity), sigma_r0=np.array(jopt.sigma_r0),
-        diag_lengths=np.array(jopt.diag_lengths), off_params=np.array(jopt.off_params),
-        diag_magnitudes=np.array(jopt.diag_magnitudes),
-        off_magnitude=float(jopt.off_magnitude), lbfgs_steps=jopt.lbfgs_steps,
-        corr_bounds=tuple(float(b) for b in jopt.corr_bounds), opt_mode=jopt.opt_mode,
-        off_len_div=float(jopt.off_len_div), coh_fit_extra=int(jopt.coh_fit_extra),
-        device=device)
-    if jopt._al_lam is not None:
-        drv.optimizer._al_lam = np.array(jopt._al_lam)
+    drv.optimizer = Optimizer.like(jax_driver.optimizer, device)
     res = jax_driver.opt_result
     drv.opt_result = OptResult(error=float(res.error), steps=list(res.steps),
                                opt_type=res.opt_type)

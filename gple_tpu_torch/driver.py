@@ -68,7 +68,8 @@ fused segment on the card times its tick replays and its period-end replays
 with CUDA events, read after the segment's one pull, into the totals
 ``dev.fused_tick`` and ``dev.fused_period_end``.  The counter
 ``small.pairs`` is the activation test's (source, target) predictions with
-variance, added by the host for every tick replay (:func:`_count_pairs`).
+variance, added by the host for every tick replay
+(:meth:`GPLEDriver._replay`).
 The run's spans and counters add to ``GPLEDriver.totals``; ``phase_times``
 is a view of the spans (:data:`PHASE_SPANS`).
 """
@@ -93,16 +94,16 @@ from gple_tpu_torch.config import GPLEConfig
 from gple_tpu_torch.dynamics import evolve as EV
 from gple_tpu_torch.gp.opt import (
     AVERAGE_TOLERANCE,
-    COMPLEX_MAG_LB,
-    COMPLEX_MAG_UB,
     CORR_BOUND,
     INITIAL_NOISE,
     Optimizer,
-    OptResult,
     _fit_once_diagnostics,
     _wstd,
     fit_data,
     moment_kernel_params,
+    off_moments,
+    pack_off,
+    unpack_off,
 )
 from gple_tpu_torch.io import checkpoint as ckpt
 from gple_tpu_torch.io.writers import OutputWriters
@@ -303,26 +304,18 @@ def _moment_reopt_core(coh_k: int, off_len_div: float, density: Density, extra: 
     oe = _off_extra_slice(extra, coh_k)
     if oe is not None:
         o_pts, o_rho = torch.cat([o_pts, oe[0]]), torch.cat([o_rho, oe[1]])
-    lr = _wstd(o_pts, o_rho[:, 0]) / off_len_div
-    li = _wstd(o_pts, o_rho[:, 1]) / off_len_div
-    mr = torch.sqrt(torch.mean(o_rho[:, 0] ** 2)) + 1e-30
-    mi = torch.sqrt(torch.mean(o_rho[:, 1] ** 2)) + 1e-30
-    new_flat = torch.cat([mr[None], lr, mi[None], li, torch.zeros(1, **f64)])
-    prev_flat = torch.cat([off_params.real_magnitude[None], off_params.real_lengths,
-                           off_params.imag_magnitude[None], off_params.imag_lengths,
-                           off_params.corr[None]])
+    mr, lr, mi, li = off_moments(o_pts, o_rho, off_len_div)
+    new_flat = pack_off(mr, lr, mi, li, torch.zeros_like(mr))
+    prev_flat = pack_off(off_params.real_magnitude, off_params.real_lengths,
+                         off_params.imag_magnitude, off_params.imag_lengths, off_params.corr)
     act_o = density.active[OFFDIAG_INDEX]
     off_flat = torch.where(act_o, new_flat, prev_flat)
     err, mags, off_mag = _fit_once_diagnostics(dlens, off_flat, fit_data(density, extra),
                                                block_diag)
-    d = dlens.shape[-1]
     diag_new = RK.KernelParams(magnitude=torch.where(dmask, mags, 1.0), lengths=dlens,
                                noise=torch.full((2,), INITIAL_NOISE, **f64))
-    off_new = CK.ComplexKernelParams(
-        magnitude=torch.where(act_o, off_mag, 1.0), real_magnitude=off_flat[0],
-        real_lengths=off_flat[1: 1 + d], imag_magnitude=off_flat[1 + d],
-        imag_lengths=off_flat[2 + d: 2 + 2 * d],
-        noise=torch.full((), INITIAL_NOISE, **f64), corr=off_flat[-1])
+    off_new = unpack_off(off_flat, torch.where(act_o, off_mag, 1.0),
+                         torch.full((), INITIAL_NOISE, **f64))
     return diag_new, off_new, err
 
 
@@ -341,14 +334,6 @@ _TICK_WIDTH = _OBS + _OBS_WIDTH
 #: then the observables after the reopt
 _RESEL, _ERR, _POP_S, _OBS_LAST = 0, 1, 2, 3
 _PERIOD_WIDTH = _OBS_LAST + _OBS_WIDTH
-
-
-def _count_pairs(active, n_ticks: int) -> None:
-    """Add ``n_ticks`` replays of the tick graph of the host tuple ``active``
-    to the counter ``small.pairs``: the activation test's predictions with
-    variance (:func:`EV.variance_pairs`).  A count inside the graph would run
-    at its capture only."""
-    spans.count("small.pairs", n_ticks * EV.variance_pairs(active))
 
 
 def _pack_obs(obs: dict):
@@ -728,7 +713,7 @@ class GPLEDriver:
         if self.cfg.opt_mode != "moment":
             return False
         opt = getattr(self, "optimizer", None)
-        return opt is None or float(np.asarray(opt.off_params)[-1]) == 0.0
+        return opt is None or opt.corr == 0.0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -927,6 +912,83 @@ class GPLEDriver:
         S.check.zero_()
         S.counter.zero_()
 
+    def _replay(self, n_ticks: int, periods=None, span=None):
+        """The tick replays of :meth:`step`, :meth:`_advance_chunk` and
+        :meth:`_advance_fused`: ``n_ticks`` replays of the tick graph of the
+        host's ``density.active`` tuple (:meth:`_programs`) from the
+        driver's state (:meth:`_load`), counted into ``small.pairs`` on the
+        host (a count inside the graph would run at its capture only), then
+        one pull.  Returns ``(active, S, pulled)``, ``pulled`` = ``[rows
+        (n_ticks, _TICK_WIDTH)]``.
+
+        ``periods = (checks, draws)``, each period's drift checks and jitter
+        draws, makes the ticks whole reopt periods, each followed by a replay
+        of the period-end graph; ``pulled`` is then ``[rows (periods, ...),
+        drift reference (3,), *the last period end's parameter leaves]``.
+        On the card each period's tick replays and its period-end replay lie
+        between CUDA events, whose seconds go to ``dev.fused_tick`` and
+        ``dev.fused_period_end`` and onto ``span``."""
+        active = self._host_active()
+        S, tick, period_end = self._programs(active, period=periods is not None)
+        self._load(S)
+        spans.count("small.pairs", n_ticks * EV.variance_pairs(active))
+        if periods is None:
+            for _ in range(n_ticks):
+                tick()
+            return active, S, _pull(S.rows[:n_ticks])
+        checks, draws = periods
+        # both graphs are captured first, so that no capture lies between two
+        # events
+        events = None
+        if self.device.type == "cuda":
+            tick.capture()
+            period_end.capture()
+            events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                      for _ in range(len(checks))]
+        rows = []
+        for p in range(len(checks)):
+            S.check.copy_(checks[p])
+            S.counter.zero_()
+            S.draws.copy_(draws[p])
+            if events:
+                events[p][0].record()
+            for _ in range(self.cfg.reopt_freq):
+                tick()
+            if events:
+                events[p][1].record()
+            period_end()
+            if events:
+                events[p][2].record()
+            rows.append(torch.cat([S.rows.reshape(-1), S.period]))
+        pulled = _pull(torch.stack(rows), S.scalars[:3],
+                       *GR.leaves((S.diag_params, S.off_params)))
+        if events:
+            # the pull waited for the stream, so every event has completed
+            dev_tick = sum(a.elapsed_time(b) for a, b, _ in events) * 1e-3
+            dev_end = sum(b.elapsed_time(c) for _, b, c in events) * 1e-3
+            spans.add("dev.fused_tick", dev_tick)
+            spans.add("dev.fused_period_end", dev_end)
+            span.set(dev_tick_s=dev_tick, dev_period_end_s=dev_end)
+        return active, S, pulled
+
+    def _clone_out(self, S: _Static, active):
+        """The replays' density, extra clouds and fits, cloned out of the
+        static state ``S``, with ``active`` their host tuple."""
+        density, extra, gps = GR.clone((S.density, S.extra, S.gps))
+        self._active_host = (density.active, active)
+        return density, extra, gps
+
+    def _snapshot(self) -> dict:
+        """What a fused segment changes besides the optimizer (each replaced,
+        never written into): the clouds, the fits, the random key, the drift
+        reference and the last optimizer result."""
+        return dict(density=self.density, extra=self.extra, gps=self.gps, rng=self.rng,
+                    _fit_ref=dict(self._fit_ref), opt_result=self.opt_result)
+
+    def _restore(self, snap: dict) -> None:
+        for name, value in snap.items():
+            setattr(self, name, value)
+
     @_collected
     @torch.inference_mode()
     def _advance_chunk(self, n_ticks: int) -> bool:
@@ -938,19 +1000,12 @@ class GPLEDriver:
         the caller then replays the chunk tick-by-tick through :meth:`step`.
         A conservation-drift check runs at the chunk end."""
         with spans.span("chunk", n=n_ticks) as chunk:
-            active = self._host_active()
-            S, tick, _ = self._programs(active)
-            self._load(S)
-            for _ in range(n_ticks):
-                tick()
-            _count_pairs(active, n_ticks)
-            (rows,) = _pull(S.rows[:n_ticks])
+            active, S, (rows,) = self._replay(n_ticks)
             smalls = rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
             if np.any(~smalls != active[None, :]):
                 chunk.set(ok=False)
                 return False
-            self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
-            self._active_host = (self.density.active, active)
+            self.density, self.extra, self.gps = self._clone_out(S, active)
             chunk.set(ok=True)
         target_purity = self._target_purity(float(rows[-1, _MC_PUR]))
         if self._drift_detected(float(rows[-1, _POP]), float(rows[-1, _PUR]), target_purity):
@@ -1078,14 +1133,9 @@ class GPLEDriver:
         cfg = self.cfg
         with spans.span("step", tick=tick_no):
             with spans.span("evolve"):
-                old_active = self._host_active()
-                S, tick, _ = self._programs(old_active)
-                self._load(S)
-                tick()
-                _count_pairs(old_active, 1)
-                (row,) = _pull(S.rows[0])
-                density, extra, new_gps = GR.clone((S.density, S.extra, S.gps))
-                self._active_host = (density.active, old_active)
+                old_active, S, (rows,) = self._replay(1)
+                density, extra, new_gps = self._clone_out(S, old_active)
+                row = rows[0]
                 pop, pur, mc_pur = row[_POP], row[_PUR], row[_MC_PUR]
             new_active = row[_SMALL:_SMALL + NUM_ELEMENTS] == 0
             opt_type = "none"
@@ -1324,9 +1374,7 @@ class GPLEDriver:
         rf = cfg.reopt_freq
         n_periods = n // rf
         with spans.span("fused", tick=start_tick, n=n) as fused:
-            snap = (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
-                    opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
-                    dict(self._fit_ref), self.opt_result)
+            snap, opt_snap = self._snapshot(), opt.snapshot()
             ticks = np.arange(start_tick, start_tick + n)
             reopt_mask = ticks % rf == 0
             # the chunked path's drift checks: chunk ends and non-reopt boundaries
@@ -1343,42 +1391,7 @@ class GPLEDriver:
                     draws[p, k] = self._split().normal((n_extra, dim))
             with spans.span("wait"):
                 checks = torch.tensor(check_mask.reshape(n_periods, rf), device=self.device)
-            S, tick, period_end = self._programs(active, period=True)
-            self._load(S)
-            # on the card, each period's tick replays and its period-end replay
-            # lie between CUDA events; both graphs are captured first, so that
-            # no capture lies between two events
-            events = None
-            if self.device.type == "cuda":
-                tick.capture()
-                period_end.capture()
-                events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                          for _ in range(n_periods)]
-            rows = []
-            for p in range(n_periods):
-                S.check.copy_(checks[p])
-                S.counter.zero_()
-                S.draws.copy_(draws[p])
-                if events:
-                    events[p][0].record()
-                for _ in range(rf):
-                    tick()
-                if events:
-                    events[p][1].record()
-                period_end()
-                if events:
-                    events[p][2].record()
-                rows.append(torch.cat([S.rows.reshape(-1), S.period]))
-            _count_pairs(active, n_periods * rf)
-            host, fit_ref, *params = _pull(torch.stack(rows), S.scalars[:3],
-                                           *GR.leaves((S.diag_params, S.off_params)))
-            if events:
-                # the pull waited for the stream, so every event has completed
-                dev_tick = sum(a.elapsed_time(b) for a, b, _ in events) * 1e-3
-                dev_end = sum(b.elapsed_time(c) for _, b, c in events) * 1e-3
-                spans.add("dev.fused_tick", dev_tick)
-                spans.add("dev.fused_period_end", dev_end)
-                fused.set(dev_tick_s=dev_tick, dev_period_end_s=dev_end)
+            active, S, (host, fit_ref, *params) = self._replay(n, (checks, draws), fused)
             tick_rows = host[:, :rf * _TICK_WIDTH].reshape(n, _TICK_WIDTH)
             period_rows = host[:, rf * _TICK_WIDTH:]
             small = tick_rows[:, _SMALL:_SMALL + NUM_ELEMENTS] > 0
@@ -1387,30 +1400,21 @@ class GPLEDriver:
                 # the re-selection flags of the period ends (scheduled reopt ticks)
                 event[rf - 1::rf] |= period_rows[:, _RESEL] > 0
             if event.any():
-                (self.density, self.extra, self.gps, self.rng, opt.diag_lengths,
-                 opt.off_params, opt.diag_magnitudes, opt.off_magnitude, opt._al_lam,
-                 self._fit_ref, self.opt_result) = snap
+                self._restore(snap)
+                opt.restore(opt_snap)
                 fused.set(ok=False)
                 return False, int(ticks[np.argmax(event)])
-            self.density, self.extra, self.gps = GR.clone((S.density, S.extra, S.gps))
-            self._active_host = (self.density.active, active)
+            self.density, self.extra, self.gps = self._clone_out(S, active)
             # the optimizer takes the last reopt's parameters, as the host reopt
             # leaves them
-            dp = RK.KernelParams(*params[:3])
-            op = CK.ComplexKernelParams(*params[3:])
-            opt.diag_lengths, opt.diag_magnitudes = dp.lengths, dp.magnitude
-            opt.off_params = np.concatenate([[op.real_magnitude], op.real_lengths,
-                                             [op.imag_magnitude], op.imag_lengths, [op.corr]])
-            opt.off_magnitude = float(op.magnitude)
-            if opt._al_lam is None:
-                opt._al_lam = np.zeros((2, 3))
+            self.opt_result = opt.adopt(RK.KernelParams(*params[:3]),
+                                        CK.ComplexKernelParams(*params[3:]),
+                                        period_rows[-1, _ERR])
             self._fit_ref = dict(zip(("pop", "pur", "target"), map(float, fit_ref)))
             if cfg.pop_rescale:
                 applied = int(np.sum(np.abs(period_rows[:, _POP_S] - 1.0) > 1e-6))
                 if applied:
                     self.stats["pop_rescales"] = self.stats.get("pop_rescales", 0) + applied
-            self.opt_result = OptResult(error=float(period_rows[-1, _ERR]),
-                                        steps=[opt.lbfgs_steps], opt_type="moment")
             fused.set(ok=True)
         # the records of the segment's outputs; a period's last tick reports
         # the observables after its reopt
@@ -1492,22 +1496,7 @@ class GPLEDriver:
         purity_prm = np.array([[pur_diag[0], pur_off], [pur_off, pur_diag[1]]])
         self.writers.write_average(surface_rows, totals, purity_prm,
                                    purity_mci * purity_factor(cfg.dim))
-        # param.txt: (lower bound, parameters, upper bound) per element (00), (10), (11)
-        opt = self.optimizer
-        triples = []
-        for s, k in enumerate(DIAG_INDICES):
-            lb, ub = Optimizer.length_bounds(points[k])
-            params = np.concatenate([[opt.diag_magnitudes[s]], opt.diag_lengths[s],
-                                     [INITIAL_NOISE]])
-            triples.append(([1.0, *lb, INITIAL_NOISE], params, [1.0, *ub, INITIAL_NOISE]))
-        olb, oub = Optimizer.length_bounds(points[OFFDIAG_INDEX])
-        off_flat = np.asarray(opt.off_params)
-        triples.insert(1, (
-            [1.0, COMPLEX_MAG_LB, *olb, COMPLEX_MAG_LB, *olb, -CORR_BOUND, INITIAL_NOISE],
-            np.concatenate([[opt.off_magnitude], off_flat, [INITIAL_NOISE]]),
-            [1.0, COMPLEX_MAG_UB, *oub, COMPLEX_MAG_UB, *oub, CORR_BOUND, INITIAL_NOISE],
-        ))
-        self.writers.write_param(triples)
+        self.writers.write_param(self.optimizer.param_rows(points))
         self.writers.write_points(points, rho[..., 0] + 1.0j * rho[..., 1],
                                   e_points, e_rho[..., 0] + 1.0j * e_rho[..., 1])
         self.writers.write_phase(preds[..., 0] + 1.0j * preds[..., 1], variances)

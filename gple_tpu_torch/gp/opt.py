@@ -45,6 +45,11 @@ autograd Functions (``gram_kernels.RBFGram`` / ``RBFPredictMean``).
 The optimizer runs on the device of the data it is given.  Its parameter
 state stays on the host as numpy arrays, as in the JAX package;
 :meth:`Optimizer.fitted_params` builds the tensors the fit reads.
+Elsewhere in the package the state is set only through the constructor,
+:meth:`~Optimizer.like`, :meth:`~Optimizer.restore` and
+:meth:`~Optimizer.adopt`, and read through :meth:`~Optimizer.snapshot`.
+:func:`pack_off` and :func:`unpack_off` alone build and slice the
+coherence's 2D + 3 parameter vector.
 :func:`moment_kernel_params` is the per-tick moment tracking
 (``GPLEConfig.moment_per_tick``) and ``Optimizer.coh_fit_extra`` the
 booster's share of the moment statistics.
@@ -103,6 +108,46 @@ def _wstd(points, weights):
     return torch.sqrt(torch.clamp(var, min=MIN_CHAR_LENGTH**2))
 
 
+def off_moments(points, rho, off_len_div: float):
+    """The coherence's moment parameters ``(m_R, l_R, m_I, l_I)`` of the cloud
+    ``points`` (N, D) with labels ``rho`` (N, 2): the label RMS of each part
+    and its |label|-weighted std over ``off_len_div``."""
+    lr = _wstd(points, rho[:, 0]) / off_len_div
+    li = _wstd(points, rho[:, 1]) / off_len_div
+    mr = torch.sqrt(torch.mean(rho[:, 0] ** 2)) + 1e-30
+    mi = torch.sqrt(torch.mean(rho[:, 1] ** 2)) + 1e-30
+    return mr, lr, mi, li
+
+
+def pack_off(real_magnitude, real_lengths, imag_magnitude, imag_lengths, corr):
+    """The coherence's parameter vector ``(m_R, l_R(D), m_I, l_I(D), corr)``,
+    2D + 3 entries: the form of :attr:`Optimizer.off_params`, of the
+    ladder's search and of its bounds.  One tensor from tensors (0-d
+    magnitudes and corr), else one host float64 array.  :func:`unpack_off`
+    splits it; :meth:`ComplexKernelParams.to_flat` is another form (2D + 5:
+    the global magnitude and the noise too)."""
+    parts = (real_magnitude, real_lengths, imag_magnitude, imag_lengths, corr)
+    if isinstance(real_lengths, torch.Tensor):
+        return torch.cat([p.reshape(-1) for p in parts])
+    return np.concatenate([np.ravel(p) for p in parts])
+
+
+def unpack_off(off, magnitude, noise) -> "CK.ComplexKernelParams":
+    """:func:`pack_off`'s vector ``off`` (..., 2D + 3), tensor or host array,
+    as a :class:`ComplexKernelParams` (views of ``off``) with the global
+    ``magnitude`` and ``noise``."""
+    d = (off.shape[-1] - 3) // 2
+    return CK.ComplexKernelParams(
+        magnitude=magnitude,
+        real_magnitude=off[..., 0],
+        real_lengths=off[..., 1: 1 + d],
+        imag_magnitude=off[..., 1 + d],
+        imag_lengths=off[..., 2 + d: 2 + 2 * d],
+        noise=noise,
+        corr=off[..., -1],
+    )
+
+
 def moment_kernel_params(density: Density, prev_diag: "RK.KernelParams",
                          prev_off: "CK.ComplexKernelParams", off_extra=None,
                          off_len_div: float = 2.0, track_diag: bool = True):
@@ -126,10 +171,7 @@ def moment_kernel_params(density: Density, prev_diag: "RK.KernelParams",
     if off_extra is not None:
         o_pts = torch.cat([o_pts, off_extra[0]])
         o_rho = torch.cat([o_rho, off_extra[1]])
-    lr = _wstd(o_pts, o_rho[:, 0]) / off_len_div
-    li = _wstd(o_pts, o_rho[:, 1]) / off_len_div
-    mr = torch.sqrt(torch.mean(o_rho[:, 0] ** 2)) + 1e-30
-    mi = torch.sqrt(torch.mean(o_rho[:, 1] ** 2)) + 1e-30
+    mr, lr, mi, li = off_moments(o_pts, o_rho, off_len_div)
     act = density.active[OFFDIAG_INDEX]
     off = prev_off._replace(
         real_magnitude=torch.where(act, mr, prev_off.real_magnitude),
@@ -184,18 +226,10 @@ def _diag_loss(diag_lengths, data):
 
 
 def _off_state(off_flat, data, block_diag: bool = False):
-    # off_flat: (..., m_R, l_R(d), m_I, l_I(d), corr) -- 2d + 3 entries
-    d = (off_flat.shape[-1] - 3) // 2
+    """The coherence fitted at unit magnitude; ``off_flat`` (..., 2D + 3) is
+    :func:`pack_off`'s vector."""
     one = torch.ones((), dtype=off_flat.dtype, device=off_flat.device)
-    params = CK.ComplexKernelParams(
-        magnitude=one,
-        real_magnitude=off_flat[..., 0],
-        real_lengths=off_flat[..., 1: 1 + d],
-        imag_magnitude=off_flat[..., 1 + d],
-        imag_lengths=off_flat[..., 2 + d: 2 + 2 * d],
-        noise=one * INITIAL_NOISE,
-        corr=off_flat[..., -1],
-    )
+    params = unpack_off(off_flat, one, one * INITIAL_NOISE)
     return CK.fit_complex(params, data["opts"], data["orho"], block_diag=block_diag)
 
 
@@ -893,7 +927,7 @@ class Optimizer:
     purity: float
     sigma_r0: np.ndarray                  # initial characteristic-length guess
     diag_lengths: np.ndarray = None       # (2, PhaseDim)
-    off_params: np.ndarray = None         # (7,): m_R, l_R(2), m_I, l_I(2), corr
+    off_params: np.ndarray = None         # (7,): pack_off's m_R, l_R(2), m_I, l_I(2), corr
     diag_magnitudes: np.ndarray = None    # (2,) analytic magnitudes
     off_magnitude: float = 1.0
     #: the ladder's L-BFGS step budget (also reported in run.log)
@@ -936,10 +970,64 @@ class Optimizer:
         #: one of this optimizer
         self._zoom_graphs = ZoomGraphs()
 
+    #: the state that :meth:`optimize` and :meth:`adopt` replace (never write
+    #: into): each attribute by its name in the checkpoint archive
+    #: (:mod:`gple_tpu_torch.io.checkpoint`)
+    _STATE = {"diag_lengths": "diag_lengths", "off_params": "off_params",
+              "diag_magnitudes": "diag_magnitudes", "off_magnitude": "off_magnitude",
+              "al_lam": "_al_lam"}
+
+    @classmethod
+    def like(cls, other, device) -> "Optimizer":
+        """A copy of ``other``, an optimizer of this package or of the JAX
+        package (whose fields are the same): its targets, settings, parameter
+        state and multipliers, on ``device``."""
+        opt = cls(
+            model=other.model, mass=float(other.mass), total_energy=float(other.total_energy),
+            purity=float(other.purity), sigma_r0=np.array(other.sigma_r0),
+            diag_lengths=np.array(other.diag_lengths), off_params=np.array(other.off_params),
+            diag_magnitudes=np.array(other.diag_magnitudes),
+            off_magnitude=float(other.off_magnitude), lbfgs_steps=other.lbfgs_steps,
+            corr_bounds=tuple(float(b) for b in other.corr_bounds), opt_mode=other.opt_mode,
+            off_len_div=float(other.off_len_div), coh_fit_extra=int(other.coh_fit_extra),
+            device=device)
+        if other._al_lam is not None:
+            opt._al_lam = np.array(other._al_lam)
+        return opt
+
+    def snapshot(self) -> dict:
+        """The state (:attr:`_STATE`) by its archive names: the parameters,
+        the analytic magnitudes and the warm AL multipliers ``al_lam`` (None
+        before the first reoptimization)."""
+        return {name: getattr(self, attr) for name, attr in self._STATE.items()}
+
+    def restore(self, snap: dict) -> None:
+        """Set the state named in ``snap``: a :meth:`snapshot`, or a part of one."""
+        for name, value in snap.items():
+            setattr(self, self._STATE[name], value)
+
+    def adopt(self, diag: "RK.KernelParams", off: "CK.ComplexKernelParams",
+              error) -> OptResult:
+        """Take the parameters (host arrays) and the error of a moment reopt
+        made on the device, as :meth:`optimize` would have left them;
+        returns its result."""
+        self.diag_lengths, self.diag_magnitudes = diag.lengths, diag.magnitude
+        self.off_params = pack_off(off.real_magnitude, off.real_lengths, off.imag_magnitude,
+                                   off.imag_lengths, off.corr)
+        self.off_magnitude = float(off.magnitude)
+        if self._al_lam is None:
+            self._al_lam = np.zeros((2, 3))
+        return OptResult(error=float(error), steps=[self.lbfgs_steps], opt_type="moment")
+
+    @property
+    def corr(self) -> float:
+        """The coherence's Re-Im correlation."""
+        return float(unpack_off(np.asarray(self.off_params), self.off_magnitude,
+                                INITIAL_NOISE).corr)
+
     def _initial_off(self):
         # corr starts at 0 (independent Re/Im), the neutral point of [-1, 1]
-        return np.concatenate(
-            [[INITIAL_MAGNITUDE], self.sigma_r0, [INITIAL_MAGNITUDE], self.sigma_r0, [0.0]])
+        return pack_off(INITIAL_MAGNITUDE, self.sigma_r0, INITIAL_MAGNITUDE, self.sigma_r0, 0.0)
 
     # -- bounds from the point cloud (opt.cpp:1026-1052) ---------------------------
     @staticmethod
@@ -964,8 +1052,8 @@ class Optimizer:
             lo, hi = self.corr_bounds
             host = dict(
                 dlb=np.stack(dlb), dub=np.stack(dub),
-                olb=np.concatenate([[COMPLEX_MAG_LB], olb, [COMPLEX_MAG_LB], olb, [lo]]),
-                oub=np.concatenate([[COMPLEX_MAG_UB], oub, [COMPLEX_MAG_UB], oub, [hi]]),
+                olb=pack_off(COMPLEX_MAG_LB, olb, COMPLEX_MAG_LB, olb, lo),
+                oub=pack_off(COMPLEX_MAG_UB, oub, COMPLEX_MAG_UB, oub, hi),
                 targets=np.array([1.0, self.total_energy, self.purity]))
             with spans.span("wait"):
                 data.update({k: torch.tensor(v, dtype=density.points.dtype,
@@ -1041,7 +1129,7 @@ class Optimizer:
                 if off_active:
                     (goff,) = _host(_global_candidates_off(data))
                 else:
-                    goff = np.concatenate([[1.0], gdiag[0], [1.0], gdiag[0], [0.0]])
+                    goff = pack_off(1.0, gdiag[0], 1.0, gdiag[0], 0.0)
                 res3 = run(*clipped(gdiag, goff), "global")
                 self.stages.append(res3)
                 res = self._compare(res, res3)
@@ -1068,16 +1156,13 @@ class Optimizer:
             if off_extra is not None:
                 o = torch.cat([o, off_extra[0]])
                 orho = torch.cat([orho, off_extra[1]])
-            lr = _wstd(o, orho[:, 0]) / self.off_len_div
-            li = _wstd(o, orho[:, 1]) / self.off_len_div
-            mr = torch.sqrt(torch.mean(orho[:, 0] ** 2)) + 1e-30
-            mi = torch.sqrt(torch.mean(orho[:, 1] ** 2)) + 1e-30
-            off = torch.cat([mr[None], lr, mi[None], li, torch.zeros(1, **f64)])
+            mr, lr, mi, li = off_moments(o, orho, self.off_len_div)
+            off = pack_off(mr, lr, mi, li, torch.zeros_like(mr))
             corr = 0.0
         else:
             with spans.span("wait"):
                 off = torch.tensor(self.off_params, **f64)
-            corr = float(self.off_params[-1])
+            corr = self.corr
         err, mags, off_mag = _fit_once_diagnostics(diag, off, data, corr == 0.0)
         (host,) = _host(torch.cat([diag.reshape(-1), off, err[None], mags, off_mag[None]]))
         nd = diag.numel()
@@ -1130,15 +1215,23 @@ class Optimizer:
         nl = lengths.size
         diag = RK.KernelParams(magnitude=flat[:2], lengths=flat[2: 2 + nl].reshape(
             lengths.shape), noise=torch.full_like(flat[:2], INITIAL_NOISE))
-        off = flat[2 + nl: -1]
-        d = (off.shape[0] - 3) // 2
-        off_p = CK.ComplexKernelParams(
-            magnitude=flat[-1],
-            real_magnitude=off[0],
-            real_lengths=off[1: 1 + d],
-            imag_magnitude=off[1 + d],
-            imag_lengths=off[2 + d: 2 + 2 * d],
-            noise=torch.full_like(flat[-1], INITIAL_NOISE),
-            corr=off[-1],
-        )
-        return diag, off_p
+        return diag, unpack_off(flat[2 + nl: -1], flat[-1],
+                                torch.full_like(flat[-1], INITIAL_NOISE))
+
+    def param_rows(self, points) -> list:
+        """param.txt's (lower bound, parameters, upper bound) rows of the
+        elements (00), (10), (11), the length bounds from the host clouds
+        ``points`` (3, N, D); the correlation's box is the learnable one,
+        (-CORR_BOUND, CORR_BOUND)."""
+        rows = []
+        for s, k in enumerate(DIAG_INDICES):
+            lb, ub = self.length_bounds(points[k])
+            rows.append(([1.0, *lb, INITIAL_NOISE],
+                         [self.diag_magnitudes[s], *self.diag_lengths[s], INITIAL_NOISE],
+                         [1.0, *ub, INITIAL_NOISE]))
+        olb, oub = self.length_bounds(points[OFFDIAG_INDEX])
+        rows.insert(1, tuple([mag, *off, INITIAL_NOISE] for mag, off in (
+            (1.0, pack_off(COMPLEX_MAG_LB, olb, COMPLEX_MAG_LB, olb, -CORR_BOUND)),
+            (self.off_magnitude, np.asarray(self.off_params)),
+            (1.0, pack_off(COMPLEX_MAG_UB, oub, COMPLEX_MAG_UB, oub, CORR_BOUND)))))
+        return rows

@@ -74,16 +74,14 @@ def save_checkpoint(path: str, driver, tick: int) -> None:
         active=_host(driver.density.active),
         extra_points=_host(driver.extra.points),
         extra_rho=_host(driver.extra.rho),
-        diag_lengths=np.asarray(opt.diag_lengths),
-        off_params=np.asarray(opt.off_params),
-        diag_magnitudes=np.asarray(opt.diag_magnitudes),
-        off_magnitude=float(opt.off_magnitude),
+        # the optimizer's state; al_lam is a (0,) array before the first reopt
+        **{name: np.zeros((0,)) if value is None else np.asarray(value)
+           for name, value in opt.snapshot().items()},
         total_energy=driver.total_energy,
         purity=driver.purity,
         purity_ratio=driver.purity_ratio,
         mc_steps=np.asarray([p.num_steps for p in driver.mc_params]),
         mc_displacements=np.asarray([p.displacement for p in driver.mc_params]),
-        al_lam=np.asarray(opt._al_lam) if opt._al_lam is not None else np.zeros((0,)),
         opt_error=float(driver.opt_result.error),
         opt_type=str(driver.opt_result.opt_type),
         coh_div_eff=float(driver._coh_div_eff),
@@ -126,7 +124,7 @@ def _restore(path: str, driver) -> int:
         driver.mc_params = [MCParameters(num_steps=int(s), displacement=float(d))
                             for s, d in zip(z["mc_steps"], z["mc_displacements"])]
         if "al_lam" in z and z["al_lam"].size:
-            driver.optimizer._al_lam = np.array(z["al_lam"])
+            driver.optimizer.restore({"al_lam": np.array(z["al_lam"])})
         if "coh_div_eff" in z:
             driver._coh_div_eff = float(z["coh_div_eff"])
             driver.optimizer.off_len_div = driver._coh_div_eff

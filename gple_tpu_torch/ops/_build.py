@@ -77,7 +77,7 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def compile_library(sources, target: Path, defines=()) -> str:
+def compile_library(sources, target: Path) -> str:
     """Compile ``sources`` (paths) into the shared library ``target``: one
     ``nvcc -c`` per source, all started together, then one link.  Returns the
     compilers' output; raises RuntimeError on a failed compile or link."""
@@ -88,7 +88,7 @@ def compile_library(sources, target: Path, defines=()) -> str:
         for src in sources:
             obj = str(Path(tmp) / (Path(src).stem + ".o"))
             objs.append(obj)
-            procs.append(subprocess.Popen([nvcc, *flags, *defines, "-c", "-o", obj, str(src)],
+            procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(src)],
                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
         outs = [(proc.communicate()[0], proc.returncode) for proc in procs]

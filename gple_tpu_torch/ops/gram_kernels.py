@@ -104,8 +104,8 @@ _VJP_BLOCKS_PER_SM = 4
 #: (~150-200 rows) short blocks in a sparse grid finish first
 _VJP_MIN_ROWS = 2
 #: points-cotangent blocks the plan aims to put on each SM (three fit at the
-#: kernel's 80 registers a thread): ``kernel_bench --sweep`` found own = 4
-#: fastest at B = 1, 160^2 and 200^2 and own = 8 at 1024^2, one wave of
+#: kernel's 80 registers a thread): a sweep of own = 1-16 on the H100 found
+#: own = 4 fastest at B = 1, 160^2 and 200^2 and own = 8 at 1024^2, one wave of
 #: 100, 80 and 256 blocks; own = 4 at 1024^2 is two waves
 _POINTS_BLOCKS_PER_SM = 2
 #: fewest own points a points-cotangent block takes: xb's side stages G's

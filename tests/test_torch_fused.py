@@ -201,10 +201,13 @@ def test_forced_event_rolls_back_bit_for_bit():
     # a drift reference the first checked tick cannot meet: a drift event
     drv._fit_ref = dict(drv._fit_ref, pop=2.0 * drv._fit_ref["pop"])
     opt = drv.optimizer
+    # warm multipliers as a ladder would leave them: a clean segment keeps them
+    opt.restore({"al_lam": np.arange(6.0).reshape(2, 3) - 2.5})
     before = dict(tensors=GR.clone((drv.density, drv.extra, drv.gps)), seed=drv.rng.seed,
-                  opt=[np.copy(a) for a in (opt.diag_lengths, opt.off_params,
-                                            opt.diag_magnitudes)],
-                  off_mag=opt.off_magnitude, ref=dict(drv._fit_ref), res=drv.opt_result)
+                  opt={k: np.copy(v) for k, v in opt.snapshot().items()},
+                  ref=dict(drv._fit_ref), res=drv.opt_result)
+    assert set(before["opt"]) == {"diag_lengths", "off_params", "diag_magnitudes",
+                                  "off_magnitude", "al_lam"}
     ok, first = drv._advance_fused(1, 10)
     assert (ok, first) == (False, 1)
     assert drv.phase_times["fused_abort"] > 0.0 and drv.phase_times["fused"] == 0.0
@@ -212,16 +215,17 @@ def test_forced_event_rolls_back_bit_for_bit():
                             GR.leaves(before["tensors"])):
         assert torch.equal(ours, theirs)
     assert drv.rng.seed == before["seed"]
-    for ours, theirs in zip((opt.diag_lengths, opt.off_params, opt.diag_magnitudes),
-                            before["opt"]):
-        np.testing.assert_array_equal(ours, theirs)
-    assert opt.off_magnitude == before["off_mag"]
+    after = opt.snapshot()
+    assert set(after) == set(before["opt"])
+    for name, value in before["opt"].items():
+        np.testing.assert_array_equal(after[name], value, err_msg=name)
     assert drv._fit_ref == before["ref"] and drv.opt_result is before["res"]
     assert drv.history == []
     # the same segment runs clean from the true reference
     drv._fit_ref = dict(drv._fit_ref, pop=0.5 * drv._fit_ref["pop"])
     assert drv._advance_fused(1, 10) == (True, False)
     assert drv.rng.seed != before["seed"] and len(drv.history) == 5
+    np.testing.assert_array_equal(opt.snapshot()["al_lam"], before["opt"]["al_lam"])
 
 
 # -- the abort hysteresis (tests/test_fused_hysteresis.py, against the port) -------------

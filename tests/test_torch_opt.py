@@ -113,6 +113,43 @@ def test_wstd_and_length_bounds_match(clouds):
         np.testing.assert_array_equal(ours, theirs)
 
 
+@pytest.mark.parametrize("corr", [0.0, -0.37])
+def test_off_vector_pack_unpack_round_trip(corr):
+    """The coherence's 2D + 3 vector has one layout, (m_R, l_R(D), m_I,
+    l_I(D), corr), written out by hand here: ``unpack_off`` reads it from an
+    optimizer's parameters (host and tensor, and through ``fitted_params``,
+    ``corr`` and param.txt's row) and ``pack_off`` gives it back bit for bit."""
+    rng = np.random.default_rng(17)
+    d = len(SIGMA)
+    off = np.concatenate([[rng.uniform(0.1, 10.0)], rng.uniform(0.01, 3.0, d),
+                          [rng.uniform(0.1, 10.0)], rng.uniform(0.01, 3.0, d), [corr]])
+    o = opt.Optimizer(model="SAC", mass=2000.0, total_energy=0.1, purity=1.0, sigma_r0=SIGMA,
+                      off_params=off.copy(), off_magnitude=2.75, device="cpu")
+    host_p = opt.unpack_off(o.off_params, o.off_magnitude, opt.INITIAL_NOISE)
+    f64 = dict(dtype=torch.float64)
+    dev_p = opt.unpack_off(torch.tensor(o.off_params), torch.tensor(o.off_magnitude, **f64),
+                           torch.tensor(opt.INITIAL_NOISE, **f64))
+    for p in (host_p, dev_p, o.fitted_params()[1]):
+        for field, value in (("real_magnitude", off[0]), ("real_lengths", off[1:1 + d]),
+                             ("imag_magnitude", off[1 + d]),
+                             ("imag_lengths", off[2 + d:2 + 2 * d]), ("corr", off[-1])):
+            np.testing.assert_array_equal(np.asarray(getattr(p, field)), value, err_msg=field)
+        assert float(p.magnitude) == 2.75 and float(p.noise) == opt.INITIAL_NOISE
+    back = opt.pack_off(host_p.real_magnitude, host_p.real_lengths, host_p.imag_magnitude,
+                        host_p.imag_lengths, host_p.corr)
+    assert back.dtype == np.float64 and np.array_equal(back, off)
+    back_t = opt.pack_off(dev_p.real_magnitude, dev_p.real_lengths, dev_p.imag_magnitude,
+                          dev_p.imag_lengths, dev_p.corr)
+    assert torch.equal(back_t, torch.tensor(off))
+    assert o.corr == corr
+    o.adopt(RK.KernelParams(*(np.asarray(t) for t in o.fitted_params()[0])),
+            CK.ComplexKernelParams(*(np.asarray(t) for t in dev_p)), 0.5)
+    assert np.array_equal(o.off_params, off) and o.off_magnitude == 2.75
+    pts = np.random.default_rng(3).normal(size=(3, 8, d))
+    _, params, _ = o.param_rows(pts)[1]
+    np.testing.assert_array_equal(params, [2.75, *off, opt.INITIAL_NOISE])
+
+
 def test_ladder_is_not_ported(clouds, one_torch_thread):
     """The constrained ladder is ported whole, with both of the JAX
     package's inner solvers: optax's zoom line search (its CPU branch, the

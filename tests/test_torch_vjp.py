@@ -259,28 +259,6 @@ def test_vjp_bounds_at_ladder_shapes():
     assert all(c.key[0] == c.kernel for c in KB.VJP_CASES)
 
 
-def test_kernel_bench_variants_edit_the_source():
-    """Each diagnostic variant of ``kernel_bench --variants`` finds the lines it
-    edits in this checkout's rbf_vjp.cu (an edit of the kernel that moves
-    them fails here, not on the card)."""
-    from gple_tpu_torch.ops import _build
-    from gple_tpu_torch.ops import kernel_bench as KB
-
-    source = (_build.CSRC / "rbf_vjp.cu").read_text()
-    length_variants = {"no exp", "no cotangent reads", "no ticket"}
-    assert set(KB.VARIANTS) == length_variants | {
-        "points: no exp", "points: no cotangent reads", "points: no division",
-        "points: staging only", "points: launch only"}
-    for name, edits in KB.VARIANTS.items():
-        text = KB.variant_source(name)
-        assert all(find not in text and replace in text for find, replace in edits)
-        if name in length_variants:
-            assert len(text) < len(source)
-            assert KB.VARIANT_KERNELS[name] == KB.LENGTH_VJPS
-        else:
-            assert text != source and KB.VARIANT_KERNELS[name] == ("rbf_gram_vjp_points",)
-
-
 def test_launched_vjp_shapes_become_cases():
     from gple_tpu_torch.ops import kernel_bench as KB
 
