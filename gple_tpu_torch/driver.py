@@ -136,18 +136,20 @@ def gp_dist_all(gps: GPStates, pts3, targets=None):
     return predict_all(gps, pts3, with_variance=True, targets=targets)
 
 
-def gp_dist_all_nocut(gps: GPStates, pts3):
+def gp_dist_all_nocut(gps: GPStates, pts3, targets=None):
     """Raw-mean GP predictions, no cutoff: the default evolution distribution
-    (the fused mean kernels, no variance)."""
-    return predict_all(gps, pts3, with_variance=False)
+    (the fused mean kernels, no variance), of the elements ``targets``."""
+    return predict_all(gps, pts3, with_variance=False, targets=targets)
 
 
-def gp_dist_coh_cut(gps: GPStates, pts3):
-    """Raw-mean diagonals + variance-cutoff coherence (``evolve_cutoff="coh"``):
-    the cutoff suppresses the low-signal / high-variance region where a
-    near-interpolating coherence fit extrapolates noise that the diagonals
-    would read at their branch points."""
-    return predict_all(gps, pts3, with_variance=False, off_with_variance=True)
+def gp_dist_coh_cut(gps: GPStates, pts3, targets=None):
+    """Raw-mean diagonals + variance-cutoff coherence (``evolve_cutoff="coh"``)
+    of the elements ``targets``: the cutoff suppresses the low-signal /
+    high-variance region where a near-interpolating coherence fit
+    extrapolates noise that the diagonals would read at their branch
+    points."""
+    return predict_all(gps, pts3, with_variance=False, off_with_variance=True,
+                       targets=targets)
 
 
 def _evolve_dist_for(mode):
@@ -203,14 +205,18 @@ def _tick_core(model: str, mass: float, dt: float, density: Density,
                extra: Density, gps: GPStates, diag_params, off_params,
                evolve_dist, track_moments: str, coh_fit_extra: int,
                coh_len_div: float, block_diag: bool, active=None):
-    """THE tick body: evolve density + extra points with ``evolve_dist``, run
-    the is-very-small activation test with the cutoff distribution (on the
-    pairs whose result the host tuple ``active`` reads, all nine with None:
-    :func:`EV.is_very_small`), optionally track the moment parameters of the
-    moved cloud (``track_moments`` "all" or "off", coherence lengths over
-    ``coh_len_div``), and refit the GP states from the moved points, the
+    """THE tick body: evolve density + extra points with ``evolve_dist``
+    (predicting only the target elements active in the host tuple
+    ``active``, all three with None: an inactive target's rows are zeros
+    either way), run the is-very-small activation test with the cutoff
+    distribution (on the pairs whose result ``active`` reads, all nine with
+    None: :func:`EV.is_very_small`), optionally track the moment parameters
+    of the moved cloud (``track_moments`` "all" or "off", coherence lengths
+    over ``coh_len_div``), and refit the GP states from the moved points, the
     coherence with the first ``coh_fit_extra`` extra points (the booster).
     Returns ``(density, extra, small (3,) bool, gps)``."""
+    if active is not None:
+        evolve_dist = partial(evolve_dist, targets=tuple(bool(a) for a in active))
     new_density = EV.evolve_step(model, mass, dt, density, evolve_dist, gps)
     new_extra = EV.evolve_step(model, mass, dt, extra, evolve_dist, gps)
     small = EV.is_very_small(model, mass, dt, new_density, gp_dist_all, gps,
@@ -247,10 +253,9 @@ def _regen_extra_core(use_cutoff, coh_k: int, n_extra: int, density: Density,
     draws ``noise[k]`` (:func:`_extra_noise`; None for an inactive element,
     whose cloud is its first point repeated with zero labels), and all three
     clouds labeled by one :func:`predict_all` with the cutoff of the
-    ``GPLEConfig.evolve_cutoff`` mode ``use_cutoff`` -- one prediction for
-    both diagonal elements and one for the coherence.  The booster's ``coh_k``
-    coherence slots keep their carried points and evolved labels while the
-    coherence was and is active.  The draws are inputs, made beforehand, so
+    ``GPLEConfig.evolve_cutoff`` mode ``use_cutoff``, one prediction per
+    element.  The booster's ``coh_k`` coherence slots keep their carried
+    points and evolved labels while the coherence was and is active.  The draws are inputs, made beforehand, so
     a CUDA graph can run this (:func:`_period_program`)."""
     pts = torch.stack([
         mc.jitter_with(noise[k], density.points[k]) if noise[k] is not None
@@ -916,10 +921,11 @@ class GPLEDriver:
         """The tick replays of :meth:`step`, :meth:`_advance_chunk` and
         :meth:`_advance_fused`: ``n_ticks`` replays of the tick graph of the
         host's ``density.active`` tuple (:meth:`_programs`) from the
-        driver's state (:meth:`_load`), counted into ``small.pairs`` on the
-        host (a count inside the graph would run at its capture only), then
-        one pull.  Returns ``(active, S, pulled)``, ``pulled`` = ``[rows
-        (n_ticks, _TICK_WIDTH)]``.
+        driver's state (:meth:`_load`), counted into ``small.pairs`` and
+        ``evolve.targets`` (the target elements each tick's evolve predicts)
+        on the host (a count inside the graph would run at its capture
+        only), then one pull.  Returns ``(active, S, pulled)``, ``pulled`` =
+        ``[rows (n_ticks, _TICK_WIDTH)]``.
 
         ``periods = (checks, draws)``, each period's drift checks and jitter
         draws, makes the ticks whole reopt periods, each followed by a replay
@@ -932,6 +938,7 @@ class GPLEDriver:
         S, tick, period_end = self._programs(active, period=periods is not None)
         self._load(S)
         spans.count("small.pairs", n_ticks * EV.variance_pairs(active))
+        spans.count("evolve.targets", n_ticks * int(sum(active)))
         if periods is None:
             for _ in range(n_ticks):
                 tick()

@@ -254,7 +254,11 @@ def evolve_step(
     Uncoupled points: one full leapfrog, density = old distribution at the old
     coordinate times the adiabatic phase.  Both are computed and blended by
     the per-point coupling mask; all queries go to ``dist_fn`` in ONE call of
-    10N points per target element."""
+    10N points per target element.  ``dist_fn`` predicts the targets it was
+    made for: all three from the driver's distributions as they are, the
+    host's active ones in the tick (:func:`gple_tpu_torch.driver._tick_core`
+    binds them as its ``targets``).  An inactive target's rows are zeros
+    either way."""
     n = density.num_points
     x0, p0 = density.points[..., 0], density.points[..., 1]          # (3, N)
     couple = is_coupling(model, x0, p0, mass, dt, criterion)          # (3, N)

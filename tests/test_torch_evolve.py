@@ -8,6 +8,7 @@ through GP predictions and agree to 1e-8 (the limits
 ``tests/test_sharding.py`` holds the JAX step to).
 """
 
+import functools
 import itertools
 
 import jax.numpy as jnp
@@ -25,8 +26,9 @@ from gple_tpu_torch import convert
 from gple_tpu_torch import driver as TD
 from gple_tpu_torch import storage as TS
 from gple_tpu_torch.dynamics import evolve as EV
-from gple_tpu_torch.entry import example_state
+from gple_tpu_torch.entry import example_params, example_state
 from gple_tpu_torch.models import tully as T
+from gple_tpu_torch.ops import graphs as GR
 from gple_tpu_torch.sampler import mc as MC
 from test_torch_kernels import _warm_torch_exp, t64  # noqa: F401 (fixture)
 
@@ -202,7 +204,8 @@ def test_variance_pairs_counts_the_pairs_read():
 @pytest.mark.parametrize("targets", list(itertools.product([True, False], repeat=3)))
 def test_predict_all_targets(states, targets):
     """``predict_all`` on a subset of targets: the full call's rows where
-    predicted (a lone diagonal element alone, not batched), zeros elsewhere."""
+    predicted, bit for bit (every element is predicted alone), zeros
+    elsewhere."""
     _, _, td, tg = states
     pts = td.points + torch.tensor([0.05, -0.3], dtype=torch.float64)
     for with_variance in (True, False):
@@ -211,6 +214,77 @@ def test_predict_all_targets(states, targets):
         assert out.shape == full.shape
         for k, on in enumerate(targets):
             if on:
-                close(out[k], full[k], 1e-13)
+                assert torch.equal(out[k], full[k])
             else:
                 assert torch.equal(out[k], torch.zeros_like(out[k]))
+
+
+# -- the tick's evolve on the host's tuple ---------------------------------------------
+
+EVOLVE_DISTS = ["gp_dist_all", "gp_dist_all_nocut", "gp_dist_coh_cut"]
+
+
+@pytest.mark.parametrize("dist", EVOLVE_DISTS)
+@pytest.mark.parametrize("active", ACTIVE_TUPLES)
+def test_tick_core_on_the_host_tuple_equals_all_targets(states, crossing, active, dist):
+    """A ``_tick_core`` tick whose evolve predicts only the targets of the
+    host's tuple against one predicting all three, under each evolve
+    distribution, far from the coupling and at the crossing: the density,
+    the extra cloud, the flags and the GP states are equal bit for bit (an
+    inactive target's rows are zeros either way, and each target is
+    predicted alone in both)."""
+    for where, (jd, jg) in (("far", states[:2]), ("crossing", crossing)):
+        tden = convert.to_torch(jd._replace(active=jnp.asarray(active)), "cpu")
+        tgps = convert.to_torch(jg._replace(active=jnp.asarray(active)), "cpu")
+        extra = tden._replace(points=tden.points + t64([0.05, -0.3]))
+        full, read = (TD._tick_core(MODEL, MASS, DT, tden, extra, tgps, tgps.diag.params,
+                                    tgps.offdiag.params, getattr(TD, dist), "none", 0, 2.0,
+                                    True, targets)
+                      for targets in (None, active))
+        for ours, theirs in zip(GR.leaves(read), GR.leaves(full)):
+            assert torch.equal(ours, theirs), where
+
+
+def _matmul_flops(fn) -> int:
+    """The flops of the matrix products that ``fn()`` runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def test_cutoff_evolve_predicts_one_target_at_the_start():
+    """One cutoff ``evolve_step`` with (0,0) alone active, at N = 96: the
+    distribution bound to the host's tuple runs about one (10N, N) x (N, N)
+    product (the lone diagonal target's variance), the unbound one the
+    thirteen of all three targets; and ``_tick_core`` binds the tuple for
+    both of its evolves (density and extra cloud)."""
+    n = 96
+    density, _ = example_state(n, "cpu", generator=torch.Generator().manual_seed(5))
+    active = torch.tensor([True, False, False])
+    density = density._replace(active=active,
+                               rho=torch.where(active[:, None, None], density.rho, 0.0))
+    dp, op = example_params("cpu")
+    with torch.inference_mode():
+        gps = TS.fit_gp_states(dp, op, density, block_diag=True)
+    gemm = 2 * 10 * n * n * n
+
+    def evolve(dist):
+        return lambda: EV.evolve_step(MODEL, MASS, DT, density, dist, gps)
+
+    bound = _matmul_flops(evolve(functools.partial(TD.gp_dist_all,
+                                                   targets=(True, False, False))))
+    every = _matmul_flops(evolve(TD.gp_dist_all))
+    assert bound <= 1.1 * gemm, bound / gemm
+    assert every >= 12 * gemm, every / gemm
+
+    asked = []
+
+    def recorded(gps, pts3, targets=None):
+        asked.append(targets)
+        return TD.gp_dist_all(gps, pts3, targets=targets)
+
+    TD._tick_core(MODEL, MASS, DT, density, density, gps, dp, op, recorded, "none", 0, 2.0,
+                  True, (True, False, False))
+    assert asked == [(True, False, False)] * 2

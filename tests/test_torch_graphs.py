@@ -11,7 +11,7 @@ replays against the eager closures.  On the CPU besides: a graph that
 differentiates, the tick's activation
 test on the host's active tuple against the full test, the GP states'
 active mask against the density's at every load of the tick graph's state,
-and the ``small.pairs`` counter.  This file
+and the ``small.pairs`` and ``evolve.targets`` counters.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_graphs.py``.
 """
@@ -332,18 +332,38 @@ def test_gp_states_carry_the_density_active_at_every_load(crossing_run):
     assert all(d == g for d, g in loads), loads
 
 
-def test_small_pairs_counts_the_replays(crossing_run):
-    """``small.pairs`` in the run's totals: 2 a tick with (0,0) alone active
-    (10 ticks, no event, 20), 0 once all three are active, and over a run
-    through the activations the sum over its tick replays (a rolled-back
-    chunk's too: the device ran them)."""
+@pytest.fixture(scope="module")
+def start_run():
+    """A trajectory run at N = 16, 10 ticks with (0,0) alone active and no
+    event."""
     from gple_tpu_torch.entry import trajectory_config
 
     drv = TD.GPLEDriver(trajectory_config(16), device="cpu")
     drv.run(max_ticks=10)
-    assert drv.totals.count("small.pairs") == 10 * 2
+    return drv
+
+
+def test_small_pairs_counts_the_replays(start_run, crossing_run):
+    """``small.pairs`` in the run's totals: 2 a tick with (0,0) alone active
+    (10 ticks, no event, 20), 0 once all three are active, and over a run
+    through the activations the sum over its tick replays (a rolled-back
+    chunk's too: the device ran them)."""
+    assert start_run.totals.count("small.pairs") == 10 * 2
     drv, _, programs = crossing_run
     assert (True, False, False) in programs and (True, True, True) in programs
     assert drv.totals.count("small.pairs") == sum(
         {(True, False, False): 2, (True, True, False): 2, (True, True, True): 0}[a]
+        for a in programs)
+
+
+def test_evolve_targets_counts_the_replays(start_run, crossing_run):
+    """``evolve.targets`` in the run's totals: the target elements each tick
+    replay's evolve predicts, 1 a tick with (0,0) alone active (10 ticks,
+    no event, 10), and over a run through the activations the number of
+    active elements summed over its tick replays."""
+    assert start_run.totals.count("evolve.targets") == 10 * 1
+    drv, _, programs = crossing_run
+    assert (True, False, False) in programs and (True, True, True) in programs
+    assert drv.totals.count("evolve.targets") == sum(
+        {(True, False, False): 1, (True, True, False): 2, (True, True, True): 3}[a]
         for a in programs)
